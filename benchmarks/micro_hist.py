@@ -1,25 +1,31 @@
-"""Microbench: histogram/CDF rank-transform building blocks on TPU.
+"""Microbench: histogram/CDF rank-transform building blocks.
 
-Compares candidate primitives for the f32 fast-mode rank transform at the
-bench.py chunk shape (N = draws*chains = 1.28M rows, P = 64 params):
+Compares formulations of the fast-mode rank transform's two passes at the
+bench.py sample (N = draws*chains = 1.28M rows) for P = 256 and P = 64:
 
-histogram (per-column counts over K bins):
-  - scatter-add        ``zeros.at[bins, col].add(1)``
-  - radix matmul       one-hot (N,Kc,P) x (N,Kf,P) -> (Kc,Kf,P) on the MXU
+histogram (per-column bin statistics over K = 4096 bins):
+  - scatter       ops/fastrank.histogram_moments: int32 counts, frac sum and
+                  member min/max, one scatter each (the library's path)
+  - scatter2      counts and frac sum only (the cost of the min/max pair)
+  - radix matmul  digit one-hots (chunk, 64, P) x (chunk, 64, P) contracted
+                  per row chunk: bf16 for the counts, f32 at HIGHEST
+                  precision for the frac sums
 
-per-element table lookup (K,P) table at (N,P) integer bins:
-  - take_along_axis    XLA gather
-  - radix matmul       einsum('ikp,kfp->ifp') then row dot
+per-element lookup of three (K, P) tables at (N, P) bins:
+  - gather        ops/fastrank.lookup_bins (the library's path)
+  - radix matmul  coarse one-hot x table block at HIGHEST, then fine select
 
-reference points: one full payload sort (the op fast mode removes) and the
-elementwise bin computation itself.
+reference points: one read of the sample (a column sum), the bin-coordinate
+pass, and one payload sort (what fast mode removes).
+
+    python benchmarks/micro_hist.py
 """
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
-from functools import partial
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -27,121 +33,155 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from bench import describe_device
+from mcmcdiagnostictools_jl_tpu.ops.fastrank import (
+    _bin_coords,
+    column_minmax,
+    histogram_moments,
+    lookup_bins,
+)
+
+K = 4096
+KF = 64
+CHUNK = 8192
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def timeit(label, fn, *args, reps=5):
     t0 = time.perf_counter()
-    out = jax.tree.leaves(fn(*args))[0]
-    np.asarray(out.ravel()[-1])
+    jax.block_until_ready(fn(*args))
     compile_s = time.perf_counter() - t0
     ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = jax.tree.leaves(fn(*args))[0]
-        np.asarray(out.ravel()[-1])
+        jax.block_until_ready(fn(*args))
         ts.append(time.perf_counter() - t0)
-    print(f"{label:42s} compile {compile_s:6.1f}s  run {sorted(ts)[len(ts)//2]*1e3:8.2f} ms",
+    ms = sorted(ts)[len(ts) // 2] * 1e3
+    print(f"{label:44s} first {compile_s:7.2f} s  median {ms:9.3f} ms",
           flush=True)
-    return out
-
-
-D, C, P = 10_000, 128, 64
-N = D * C
-rng = np.random.default_rng(0)
-x = jax.device_put(rng.standard_normal((N, P)).astype(np.float32))
+    return ms
 
 
 @jax.jit
-def full_sort_pair(xf):
+def read_once(xf):
+    return jnp.sum(xf, axis=0)
+
+
+@jax.jit
+def sort_pair(xf):
     iota = jax.lax.broadcasted_iota(jnp.int32, xf.shape, 0)
     return jax.lax.sort((xf, iota), dimension=0, num_keys=1, is_stable=False)
 
 
-@partial(jax.jit, static_argnames=("k",))
-def compute_bins(xf, k: int):
-    lo = jnp.min(xf, axis=0)
-    hi = jnp.max(xf, axis=0)
-    scale = jnp.where(hi > lo, k / (hi - lo), 0.0)
-    s = (xf - lo[None]) * scale[None]
-    b = jnp.clip(s.astype(jnp.int32), 0, k - 1)
-    return b, s - b.astype(jnp.float32)
+@jax.jit
+def bins(xf):
+    lo, hi, _ = column_minmax(xf)
+    return _bin_coords(xf, lo, hi, K)
 
 
-@partial(jax.jit, static_argnames=("k",))
-def hist_scatter(xf, k: int):
-    b, _ = compute_bins(xf, k)
+@jax.jit
+def hist_scatter(xf, b, frac):
+    return histogram_moments(xf, b, frac, K)
+
+
+@jax.jit
+def hist_scatter2(b, frac):
     cols = jax.lax.broadcasted_iota(jnp.int32, b.shape, 1)
-    return jnp.zeros((k, xf.shape[1]), jnp.float32).at[b, cols].add(1.0)
+    p = b.shape[1]
+    cnt = jnp.zeros((K, p), jnp.int32).at[b, cols].add(1)
+    s1 = jnp.zeros((K, p), frac.dtype).at[b, cols].add(frac)
+    return cnt, s1
 
 
-@partial(jax.jit, static_argnames=("k", "kf", "chunk"))
-def hist_radix(xf, k: int, kf: int = 64, chunk: int = 5000):
-    kc = k // kf
-    b, _ = compute_bins(xf, k)
+@jax.jit
+def hist_radix(b, frac):
     n, p = b.shape
-    nchunks = n // chunk
-    bc = b.reshape(nchunks, chunk, p)
+    kc = K // KF
+    npad = (-n) % CHUNK
+    b = jnp.pad(b, ((0, npad), (0, 0)), constant_values=K)
+    frac = jnp.pad(frac, ((0, npad), (0, 0)))
+    bc = b.reshape(-1, CHUNK, p)
+    fr = frac.reshape(-1, CHUNK, p)
     iota_c = jnp.arange(kc, dtype=jnp.int32)
-    iota_f = jnp.arange(kf, dtype=jnp.int32)
+    iota_f = jnp.arange(KF, dtype=jnp.int32)
 
-    def body(acc, bi):
-        c = bi // kf
-        f = bi % kf
-        a = (c[:, None, :] == iota_c[None, :, None]).astype(jnp.bfloat16)
-        bb = (f[:, None, :] == iota_f[None, :, None]).astype(jnp.bfloat16)
-        h = jnp.einsum("ikp,ifp->kfp", a, bb,
-                       preferred_element_type=jnp.float32)
-        return acc + h, None
+    def body(carry, op):
+        cnt_acc, s1_acc = carry
+        bi, fi = op
+        ac = (bi // KF)[:, None, :] == iota_c[None, :, None]
+        af = (bi % KF)[:, None, :] == iota_f[None, :, None]
+        cnt = jnp.einsum("ikp,ifp->kfp", ac.astype(jnp.bfloat16),
+                         af.astype(jnp.bfloat16),
+                         preferred_element_type=jnp.float32)
+        s1 = jnp.einsum("ikp,ifp->kfp", jnp.where(ac, fi[:, None, :], 0.0),
+                        af.astype(jnp.float32), precision=HIGHEST)
+        return (cnt_acc + cnt, s1_acc + s1), None
 
-    acc0 = jnp.zeros((kc, kf, p), jnp.float32)
-    acc, _ = jax.lax.scan(body, acc0, bc)
-    return acc.reshape(k, p)
-
-
-@partial(jax.jit, static_argnames=("k",))
-def lookup_take(xf, k: int):
-    b, _ = compute_bins(xf, k)
-    tab = jnp.cumsum(jnp.ones((k, xf.shape[1]), jnp.float32), axis=0)  # dummy
-    return jnp.take_along_axis(tab, b, axis=0)
+    zero = jnp.zeros((kc, KF, p), jnp.float32)
+    (cnt, s1), _ = jax.lax.scan(body, (zero, zero), (bc, fr))
+    return cnt.reshape(K, p), s1.reshape(K, p)
 
 
-@partial(jax.jit, static_argnames=("k", "kf", "chunk"))
-def lookup_radix(xf, k: int, kf: int = 64, chunk: int = 5000):
-    kc = k // kf
-    b, _ = compute_bins(xf, k)
+@jax.jit
+def lookup_gather(b, tables):
+    return lookup_bins(b, tables)
+
+
+@jax.jit
+def lookup_radix(b, tables):
     n, p = b.shape
-    tab = jnp.cumsum(jnp.ones((k, p), jnp.float32), axis=0)
-    t3 = tab.reshape(kc, kf, p)
-    nchunks = n // chunk
-    bc = b.reshape(nchunks, chunk, p)
+    w = tables.shape[-1]
+    kc = K // KF
+    t = jnp.moveaxis(tables, -1, 0).reshape(w, kc, KF, p)
+    t = t.transpose(1, 0, 2, 3).reshape(kc, w * KF, p)
+    npad = (-n) % CHUNK
+    bc = jnp.pad(b, ((0, npad), (0, 0))).reshape(-1, CHUNK, p)
     iota_c = jnp.arange(kc, dtype=jnp.int32)
-    iota_f = jnp.arange(kf, dtype=jnp.int32)
+    iota_f = jnp.arange(KF, dtype=jnp.int32)
 
     def body(_, bi):
-        c = bi // kf
-        f = bi % kf
-        a = (c[:, None, :] == iota_c[None, :, None]).astype(jnp.bfloat16)
-        rows = jnp.einsum("ikp,kfp->ifp", a, t3.astype(jnp.bfloat16),
-                          preferred_element_type=jnp.float32)
-        bb = (f[:, None, :] == iota_f[None, :, None]).astype(jnp.float32)
-        return None, jnp.sum(rows * bb, axis=1)
+        ac = ((bi // KF)[:, None, :] == iota_c[None, :, None]).astype(
+            jnp.float32)
+        rows = jnp.einsum("ikp,kqp->iqp", ac, t, precision=HIGHEST)
+        rows = rows.reshape(CHUNK, w, KF, p)
+        af = ((bi % KF)[:, None, :] == iota_f[None, :, None]).astype(
+            jnp.float32)
+        return None, jnp.einsum("iwfp,ifp->wip", rows, af, precision=HIGHEST)
 
     _, out = jax.lax.scan(body, None, bc)
-    return out.reshape(n, p)
+    return jnp.moveaxis(out, 1, 0).reshape(w, -1, p)[:, :n, :]
+
+
+def main():
+    print("device:", json.dumps(describe_device()), flush=True)
+    rng = np.random.default_rng(0)
+    for p in (256, 64):
+        n = 10_000 * 128
+        print(f"== N={n} P={p} K={K} f32", flush=True)
+        xf = jax.device_put(rng.standard_normal((n, p)).astype(np.float32))
+        timeit("read once (column sum)", read_once, xf)
+        timeit("bin coordinates (min/max + bins)", bins, xf)
+        b, frac = jax.block_until_ready(bins(xf))
+        timeit("hist scatter (cnt, s1, vmin, vmax)", hist_scatter, xf, b, frac)
+        timeit("hist scatter (cnt, s1 only)", hist_scatter2, b, frac)
+        timeit("hist radix matmul (HIGHEST s1)", hist_radix, b, frac)
+        cnt, s1 = hist_scatter2(b, frac)
+        tables = jnp.stack([jnp.cumsum(cnt, 0).astype(jnp.float32),
+                            cnt.astype(jnp.float32), s1], axis=-1)
+        timeit("lookup gather (3 tables)", lookup_gather, b, tables)
+        timeit("lookup radix matmul (HIGHEST)", lookup_radix, b, tables)
+        timeit("payload sort (f32 key, i32 payload)", sort_pair, xf)
+        c1, s_1 = (np.asarray(v) for v in hist_scatter2(b, frac))
+        c2, s_2 = (np.asarray(v) for v in hist_radix(b, frac))
+        print("  hist counts scatter == radix:", np.array_equal(c1, c2),
+              " s1 max abs diff:", float(np.max(np.abs(s_1 - s_2))),
+              flush=True)
+        l1 = np.asarray(lookup_gather(b, tables))
+        l2 = np.asarray(lookup_radix(b, tables))
+        print("  lookup gather == radix:", np.array_equal(l1, l2),
+              " max abs diff:", float(np.max(np.abs(l1 - l2))), flush=True)
+        del xf, b, frac
 
 
 if __name__ == "__main__":
-    from mcmcdiagnostictools_jl_tpu.utils.profiling import enable_compilation_cache
-    enable_compilation_cache()
-    print(f"shape N={N} P={P}, device={jax.devices()[0]}")
-    timeit("compute_bins k=4096", compute_bins, x, 4096)
-    for k in (1024, 4096):
-        timeit(f"hist radix   k={k}", hist_radix, x, k)
-        timeit(f"lookup take_along_axis k={k}", lookup_take, x, k)
-        timeit(f"lookup radix matmul    k={k}", lookup_radix, x, k)
-    # correctness cross-check
-    h1 = np.asarray(hist_scatter(x, 1024))  # noqa: slow but one-shot
-    h2 = np.asarray(hist_radix(x, 1024))
-    print("hist scatter==radix:", np.array_equal(h1, h2))
-    l1 = np.asarray(lookup_take(x, 1024))
-    l2 = np.asarray(lookup_radix(x, 1024))
-    print("lookup take==radix:", np.array_equal(l1, l2))
+    main()

@@ -1,7 +1,7 @@
-"""TPU-native MCMC diagnostics engine.
+"""MCMC diagnostics engine on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas implementation of the full capability surface of
-MCMCDiagnosticTools.jl (reference: /root/reference, v0.3.19), redesigned for TPU:
+A from-scratch JAX/XLA implementation of the full capability surface of
+MCMCDiagnosticTools.jl (v0.3.19), batched for an accelerator:
 
 - Canonical data layout ``(draws, chains[, parameters...])`` — sample dims first,
   arbitrary trailing parameter dims (reference src/utils.jl:197-211).
@@ -25,7 +25,7 @@ Differences from the reference, by design:
   poisons that parameter's outputs (mirrors reference src/ess_rhat.jl:519-523).
 - Estimator ``kind``s are strings (``"mean"``, ``"median"``, ``"std"``, ``"mad"``)
   or ``Quantile(p)`` instead of Julia function objects.
-- The default autocovariance method is the FFT method (TPU-first); the direct
+- The default autocovariance method is the batched FFT method; the direct
   and BDA estimators are provided for parity and agree to float tolerance.
 """
 
@@ -34,8 +34,6 @@ from .diagnostics.ess_rhat import (
     AutocovMethod,
     BDAAutocovMethod,
     FFTAutocovMethod,
-    PallasAutocovMethod,
-    FusedAutocovMethod,
     Quantile,
     ess,
     ess_rhat,
@@ -63,8 +61,6 @@ __all__ = [
     "AutocovMethod",
     "FFTAutocovMethod",
     "BDAAutocovMethod",
-    "PallasAutocovMethod",
-    "FusedAutocovMethod",
     "Quantile",
     "gelmandiag",
     "gelmandiag_multivariate",
@@ -73,7 +69,7 @@ __all__ = [
     "mcse",
     "rafterydiag",
     "rstar",
-    # TPU-native extras (no reference counterpart)
+    # extras with no reference counterpart
     "ess_rhat_streaming",
     "stream_param_chunks",
 ]

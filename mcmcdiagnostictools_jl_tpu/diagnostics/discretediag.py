@@ -15,7 +15,7 @@ with six methods:
 - ``"billingsleyBOOT"`` — its Markov-chain bootstrap
   (src/discretediag.jl:344-356)
 
-TPU-first layout: there is no per-(parameter, chain) Python loop anywhere.
+Batched layout: there is no per-(parameter, chain) Python loop anywhere.
 All between-chain tests (one per parameter) and all within-chain tests (one
 per parameter x chain, comparing the first ``frac`` draws against the last
 ``frac``) run as ONE batched program each. Observed counts are flat-bincount
@@ -87,9 +87,9 @@ def discretediag(chains, *, frac: float = 0.3, method: str = "weiss",
     codes, m_arr = _integer_codes_batched(x)  # (n, d, P), (P,)
     m_pad = int(m_arr.max())
 
-    # rbg keys: random_bits lowers to XLA's hardware RngBitGenerator (the
-    # bootstrap scan draws uniforms per step per (sim, test, chain) cell and
-    # threefry would dominate the VPU); splits stay threefry-based and safe
+    # rbg keys: random_bits lowers to XLA's RngBitGenerator (the bootstrap
+    # scan draws uniforms per step per (sim, test, chain) cell and threefry
+    # would dominate the step); splits stay threefry-based and safe
     seeds = rng.integers(0, 2**62, size=2)
     key_b, key_w = (jax.random.key(int(s), impl="rbg") for s in seeds)
 
@@ -382,8 +382,8 @@ def _boot_chunk(key, phia, cdf_fresh, cdf_trans, zero_row, m_true, *, n, d, m,
 
     Layout: every state tensor keeps the big (S, B) axes minor-most — codes
     (d, S, B), category counts (d, m, S, B), transition counts
-    (d, m, m, S, B) — so the TPU (8, 128) tiling lands on sims x tests, not
-    on the tiny chain/category axes (d as minor dim pads 16-64x)."""
+    (d, m, m, S, B) — so the contiguous axis is sims x tests, not the tiny
+    chain/category axes."""
     B = phia.shape[0]
     cats = jnp.arange(m, dtype=jnp.int32)
 
@@ -430,8 +430,12 @@ def _boot_chunk(key, phia, cdf_fresh, cdf_trans, zero_row, m_true, *, n, d, m,
         else:
             u1 = jax.random.uniform(key_t, (d, S, B), dtype=jnp.float32)
             oh_prev = onehot(prev).astype(jnp.float32)  # (d, m, S, B)
-            rowcdf = jnp.einsum("dmsb,mkb->dksb", oh_prev, cdf_trans_t)
-            zr = jnp.einsum("dmsb,mb->dsb", oh_prev, zero_row_t)
+            # the one-hot selects f32 CDF rows: full precision keeps the
+            # selected values bit-exact
+            rowcdf = jnp.einsum("dmsb,mkb->dksb", oh_prev, cdf_trans_t,
+                                precision=jax.lax.Precision.HIGHEST)
+            zr = jnp.einsum("dmsb,mb->dsb", oh_prev, zero_row_t,
+                            precision=jax.lax.Precision.HIGHEST)
             nxt = jnp.minimum(
                 jnp.sum(u1[:, None] > rowcdf, axis=1).astype(jnp.int32),
                 m_true[None, None, :] - 1)

@@ -46,10 +46,9 @@ from ..ops.fastrank import (
     fast_rank_normalize,
     fast_rank_normalize_flat,
     hist_quantile,
-    resolve_fast_impl,
 )
 from ..ops.geyer import geyer_ess_from_rho
-from ..ops.moments import chain_stats, fused_chain_stats_autocov
+from ..ops.moments import chain_stats
 from ..ops.ranknorm import (
     batched_median,
     batched_quantile,
@@ -80,10 +79,9 @@ class AutocovMethod:
 
 @dataclass(frozen=True)
 class FFTAutocovMethod:
-    """Batched real-FFT autocovariance estimator — the default on non-TPU
-    backends and the long-chain fallback on TPU (``autocov_method="auto"``
-    picks the fused Pallas kernel on TPU when it fits VMEM)
-    (reference src/ess_rhat.jl:40-55,103-118,181-195)."""
+    """Batched real-FFT autocovariance estimator — what
+    ``autocov_method="auto"`` resolves to (reference
+    src/ess_rhat.jl:40-55,103-118,181-195)."""
 
     name: str = "fft"
 
@@ -94,35 +92,6 @@ class BDAAutocovMethod:
     src/ess_rhat.jl:57-73,197-213)."""
 
     name: str = "bda"
-
-
-@dataclass(frozen=True)
-class PallasAutocovMethod:
-    """Direct Geyer estimator via the Pallas VMEM-resident lag kernel — the
-    single-chip TPU fast path (ops/pallas/autocov_kernel.py). Numerically the
-    AutocovMethod estimator. ``interpret=True`` runs on CPU for testing."""
-
-    interpret: bool = False
-
-    @property
-    def name(self) -> str:
-        return "pallas_interpret" if self.interpret else "pallas"
-
-
-@dataclass(frozen=True)
-class FusedAutocovMethod:
-    """Direct Geyer estimator via the fused Pallas kernel that also computes
-    the chain moments and degeneracy flags in the same HBM pass
-    (ops/pallas/fused_basic_kernel.py). Numerically the AutocovMethod
-    estimator — the reference's default (src/ess_rhat.jl:161-179). Selected
-    automatically on TPU by ``autocov_method="auto"``. ``interpret=True``
-    runs on CPU for testing."""
-
-    interpret: bool = False
-
-    @property
-    def name(self) -> str:
-        return "fused_interpret" if self.interpret else "fused"
 
 
 @dataclass(frozen=True)
@@ -142,89 +111,39 @@ _ESTIMATOR_KINDS = ("mean", "median", "std", "mad")
 _RHAT_KINDS = ("rank", "bulk", "tail", "basic")
 
 
-# Fused Pallas kernel VMEM footprint: one (niter, 128) input block plus a
-# (niter + maxlag, 128) scratch must fit comfortably in ~16 MB of VMEM.
-_FUSED_VMEM_BUDGET_BYTES = 8 * 1024 * 1024
+# ``fold_impl="auto"``: the fold-sort implementation measured fastest on an
+# H100 (700 W) at the exact-mode chunk (1.28M rows, 64 params): the two-axis
+# decomposition took 62 ms against 537 ms for one payload lax.sort (PERF.md
+# "H100 bring-up").
+_FOLD_AUTO = "two_sort"
 
 
-def _auto_method(x3=None, niter=None, maxlag: int = 250) -> str:
-    """Resolve ``autocov_method="auto"`` from where the computation will run.
-
-    Uses the committed device of the input array (NOT ``jax.default_backend()``
-    — a pinned ``jax_default_device`` would otherwise be ignored and the fused
-    TPU kernel selected on a CPU computation). On TPU the fused single-pass
-    Pallas kernel computes the reference's default direct estimator
-    (src/ess_rhat.jl:161-179) unless its VMEM working set would overflow, in
-    which case (and everywhere else) the batched rFFT path is used.
-    """
-    platform = None
-    if x3 is not None:
-        try:
-            platform = next(iter(x3.devices())).platform
-        except Exception:
-            platform = None  # tracer or non-jax input
-    if platform is None:
-        platform = jax.default_backend()
-    if platform != "tpu":
-        return "fft"
-    if x3 is not None:
-        itemsize = jnp.dtype(x3.dtype).itemsize
-        if itemsize > 4:
-            # TPU rewrites x64 HLO to f32 pairs, but cannot rewrite inside a
-            # pallas_call — f64 inputs must take the plain-XLA path
-            return "fft"
-        if niter is not None and (
-            (2 * niter + maxlag) * 128 * itemsize > _FUSED_VMEM_BUDGET_BYTES
-        ):
-            return "fft"
-    return "fused"
-
-
-def _resolve_fold_merge(x3, fold_impl: str = "auto") -> str | None:
+def _resolve_fold_merge(fold_impl: str = "auto") -> str | None:
     """Resolve the fold-sort implementation for tail/rank kinds.
 
-    ``"auto"`` picks the two-axis bitonic-merge decomposition
-    (ops/ranknorm.valley_sort_2d, 2.06x measured on v5e) on TPU when the
-    flattened sample spans enough blocks; ``"sort"``/``"merge"`` force the
-    plain ``lax.sort`` / two-sort path on any backend (the two are
-    key-bit-identical; only tie order differs, which the tied-average ranks
-    absorb).
+    ``"sort"`` is one plain payload ``lax.sort``; ``"merge"`` sorts the
+    folded valley with the two-axis decomposition
+    (ops/ranknorm.valley_sort_2d). The two are key-bit-identical; only tie
+    order differs, which the tied-average ranks absorb. ``"auto"`` is the
+    measured winner, whatever the input.
     """
     if fold_impl == "sort":
         return None
     if fold_impl == "merge":
         return "two_sort"
-    if fold_impl != "auto":
-        raise ValueError(f"unsupported fold_impl {fold_impl!r}")
-    from ..ops.ranknorm import _VALLEY_BLOCK
-
-    platform = None
-    try:
-        platform = next(iter(x3.devices())).platform
-    except Exception:
-        platform = None
-    if platform is None:
-        platform = jax.default_backend()
-    n = x3.shape[0] * x3.shape[1]
-    if platform == "tpu" and n >= 2 * _VALLEY_BLOCK:
-        return "two_sort"
-    return None
+    if fold_impl == "auto":
+        return _FOLD_AUTO
+    raise ValueError(f"unsupported fold_impl {fold_impl!r}")
 
 
-def _method_name(autocov_method, x3=None, niter=None, maxlag: int = 250):
+def _method_name(autocov_method):
+    """Autocovariance method name; ``"auto"`` is the batched rFFT."""
     if isinstance(
-        autocov_method,
-        (
-            AutocovMethod,
-            FFTAutocovMethod,
-            BDAAutocovMethod,
-            PallasAutocovMethod,
-            FusedAutocovMethod,
-        ),
+        autocov_method, (AutocovMethod, FFTAutocovMethod, BDAAutocovMethod)
     ):
         return autocov_method.name
     if autocov_method == "auto":
-        return _auto_method(x3, niter, maxlag)
+        return "fft"
     if isinstance(autocov_method, str) or callable(autocov_method):
         return autocov_method
     raise TypeError(f"unsupported autocov_method: {autocov_method!r}")
@@ -257,8 +176,7 @@ def _expectand_proxy(estimator, x3, q: float | None):
     raise ValueError(f"the estimator {estimator!r} is not supported by `ess`")
 
 
-def _fast_expectand_proxy(estimator, x3, q: float | None, nbins: int,
-                          impl: str):
+def _fast_expectand_proxy(estimator, x3, q: float | None, nbins: int):
     """Sort-free estimator proxies (``rank_mode="fast"``).
 
     Same proxy algebra as ``_expectand_proxy`` (src/ess_rhat.jl:626-659)
@@ -271,7 +189,7 @@ def _fast_expectand_proxy(estimator, x3, q: float | None, nbins: int,
         return _expectand_proxy(estimator, x3, q)
     d, c, p = x3.shape
     xf = x3.reshape(d * c, p)
-    cdf = build_hist_cdf(xf, nbins, impl=impl)
+    cdf = build_hist_cdf(xf, nbins)
     if estimator == "median":
         return _indicator_leq(x3, hist_quantile(cdf, (0.5,), nbins)[0])
     if estimator == "quantile":
@@ -279,7 +197,7 @@ def _fast_expectand_proxy(estimator, x3, q: float | None, nbins: int,
     if estimator == "mad":
         med = hist_quantile(cdf, (0.5,), nbins)[0]
         folded = jnp.abs(xf - jnp.nan_to_num(med)[None, :])
-        fcdf = _folded_cdf(folded, cdf, med, nbins, impl)
+        fcdf = _folded_cdf(folded, cdf, med, nbins)
         med_f = hist_quantile(fcdf, (0.5,), nbins)[0]
         med_f = jnp.where(cdf.bad, jnp.nan, med_f)
         return _indicator_leq(folded.reshape(d, c, p), med_f)
@@ -298,7 +216,7 @@ def _basic_rhat(x3, split_chains: int):
 
 def _tail_rhat_from_sort(xs, order, med, bad, shape3, split_chains: int,
                          fold_merge: str | None = None):
-    """Tail R-hat from the bulk transform's sort — no inverse sort.
+    """Tail R-hat from the bulk transform's sort — no routing back.
 
     The folded rank-normal sample's split-chain moments are order-free, so
     they come straight off the fold sort via the weighted one-hot histogram
@@ -306,39 +224,14 @@ def _tail_rhat_from_sort(xs, order, med, bad, shape3, split_chains: int,
     with a fourth full payload sort. Numerically the R-hat of
     ``rank_normalize(|x - median|)`` (reference src/ess_rhat.jl:413-415).
 
-    ``fold_merge``: forwarded to ``folded_rank_values_sorted`` — on TPU f32
-    the fold sort is replaced by the Pallas valley-merge kernel.
+    ``fold_merge``: forwarded to ``folded_rank_values_sorted``
+    (``_resolve_fold_merge``).
     """
     d, c, _ = shape3
     zf_sorted, forder = folded_rank_values_sorted(xs, order, med,
                                                   merge=fold_merge)
     stats = split_chain_stats_from_sorted(zf_sorted, forder, d, c, split_chains)
     return jnp.where(bad, jnp.nan, stats.rhat)
-
-
-# First-stage lag budget of the adaptive Geyer walk. The reference's hot
-# loop STOPS at the first nonpositive lag pair (src/ess_rhat.jl:563-581);
-# the vectorized reduction normally computes all ``maxlag`` lags and masks.
-# The adaptive path computes 0.._ADAPTIVE_L0 first; if every series' walk
-# provably stopped inside that window (a nonpositive or NaN pair exists —
-# then alive/cummin/k_final are prefix-determined and the result is
-# BIT-IDENTICAL to the full computation), the remaining lags are never
-# touched. Well-mixed chains stop within a handful of pairs, so the fused
-# kernel's lag work drops ~4x; sticky chains pay one extra L0-lag pass.
-_ADAPTIVE_L0 = 64
-
-
-def _geyer_walk_stopped(rho):
-    """(P,) True where the pair walk provably stops within ``rho``'s lags:
-    some pair ``rho[2t] + rho[2t+1]`` is nonpositive or NaN (a NaN pair
-    breaks the reference walk exactly like a nonpositive one, so the stop
-    point — and hence the result — is prefix-determined either way)."""
-    lmax = rho.shape[0] - 1
-    num_pairs = max(0, (lmax - 2) // 2)
-    if num_pairs == 0:
-        return jnp.zeros(rho.shape[1], bool)
-    delta = (rho[2:2 + 2 * num_pairs:2] + rho[3:3 + 2 * num_pairs:2])
-    return jnp.any(~(delta > 0), axis=0)
 
 
 def _basic_ess_rhat(x3, split_chains: int, maxlag: int, method, relative: bool):
@@ -350,36 +243,6 @@ def _basic_ess_rhat(x3, split_chains: int, maxlag: int, method, relative: bool):
     samples = split_chains_reshape(x3, split_chains)
     niter, nchains, _ = samples.shape
     ntotal = niter * nchains
-    if method in ("fused", "fused_interpret"):
-        interpret = method == "fused_interpret"
-
-        def stats_rho(lag):
-            with jax.named_scope("mdt.fused_moments_autocov"):
-                stats, acov = fused_chain_stats_autocov(
-                    samples, lag, interpret=interpret
-                )
-            rho = 1.0 - (stats.w[None] - acov) / stats.var_plus[None]
-            return stats, rho
-
-        if maxlag >= 2 * _ADAPTIVE_L0:
-            stats0, rho0 = stats_rho(_ADAPTIVE_L0)
-            stopped = _geyer_walk_stopped(rho0)
-
-            def done(_):
-                return (
-                    geyer_ess_from_rho(rho0, ntotal, relative), stats0.rhat
-                )
-
-            def full(_):
-                stats, rho = stats_rho(maxlag)
-                return geyer_ess_from_rho(rho, ntotal, relative), stats.rhat
-
-            with jax.named_scope("mdt.geyer_adaptive"):
-                return jax.lax.cond(jnp.all(stopped), done, full, None)
-        stats, rho = stats_rho(maxlag)
-        with jax.named_scope("mdt.geyer"):
-            ess = geyer_ess_from_rho(rho, ntotal, relative)
-        return ess, stats.rhat
     with jax.named_scope("mdt.split_moments"):
         stats = chain_stats(samples)
         centered = samples - stats.chain_mean[None]
@@ -405,7 +268,7 @@ def _fast_tail_rhat(z_tail, split_chains: int):
 
 def _fast_kind_pipeline(
     x3, *, kind: str, split_chains: int, maxlag: int, method, relative: bool,
-    q: float | None, nbins: int, fast_impl: str = "xla",
+    q: float | None, nbins: int,
 ):
     """Histogram/CDF fast-mode bulk/tail/rank kinds (ops/fastrank.py).
 
@@ -415,14 +278,14 @@ def _fast_kind_pipeline(
     """
     if kind == "bulk":
         return _basic_ess_rhat(
-            fast_rank_normalize(x3, nbins, impl=fast_impl), split_chains,
+            fast_rank_normalize(x3, nbins), split_chains,
             maxlag, method, relative,
         )
     d, c, p = x3.shape
     if kind == "tail":
         tail_prob = 0.1 if q is None else q
         xf = x3.reshape(d * c, p)
-        cdf = build_hist_cdf(xf, nbins, impl=fast_impl)
+        cdf = build_hist_cdf(xf, nbins)
         t_lo, t_hi, med = hist_quantile(
             cdf, (tail_prob / 2, 1 - tail_prob / 2, 0.5), nbins
         )
@@ -434,13 +297,12 @@ def _fast_kind_pipeline(
         ess = jnp.minimum(ess2[:p], ess2[p:])
         folded = jnp.abs(xf - jnp.nan_to_num(med)[None, :])
         z_tail, _ = fast_rank_normalize_flat(
-            folded, nbins, impl=fast_impl,
-            cdf=_folded_cdf(folded, cdf, med, nbins, fast_impl))
+            folded, nbins, cdf=_folded_cdf(folded, cdf, med, nbins))
         z_tail = jnp.where(cdf.bad[None, :], jnp.nan, z_tail)
         rhat_tail = _fast_tail_rhat(z_tail.reshape(d, c, p), split_chains)
         return ess, rhat_tail
     if kind == "rank":
-        z_bulk, z_tail, _ = fast_rank_bulk_tail(x3, nbins, impl=fast_impl)
+        z_bulk, z_tail, _ = fast_rank_bulk_tail(x3, nbins)
         ess_bulk, rhat_bulk = _basic_ess_rhat(
             z_bulk, split_chains, maxlag, method, relative
         )
@@ -449,12 +311,10 @@ def _fast_kind_pipeline(
     raise ValueError(f"unsupported fast-mode kind {kind!r}")
 
 
-def _fast_rhat_pipeline(x3, *, kind: str, split_chains: int, nbins: int,
-                        fast_impl: str = "xla"):
+def _fast_rhat_pipeline(x3, *, kind: str, split_chains: int, nbins: int):
     if kind == "bulk":
-        return _basic_rhat(fast_rank_normalize(x3, nbins, impl=fast_impl),
-                           split_chains)
-    z_bulk, z_tail, _ = fast_rank_bulk_tail(x3, nbins, impl=fast_impl)
+        return _basic_rhat(fast_rank_normalize(x3, nbins), split_chains)
+    z_bulk, z_tail, _ = fast_rank_bulk_tail(x3, nbins)
     if kind == "tail":
         return _fast_tail_rhat(z_tail, split_chains)
     if kind == "rank":
@@ -469,14 +329,14 @@ def _fast_rhat_pipeline(x3, *, kind: str, split_chains: int, nbins: int,
     jax.jit,
     static_argnames=(
         "kind", "split_chains", "maxlag", "method", "relative", "q",
-        "param_chunk", "fold_merge", "rank_mode", "rank_nbins", "fast_impl",
+        "param_chunk", "fold_merge", "rank_mode", "rank_nbins",
     ),
 )
 def _ess_rhat_pipeline(
     x3, *, kind: str, split_chains: int, maxlag: int, method, relative: bool,
     q: float | None = None, param_chunk: int | None = None,
     fold_merge: str | None = None, rank_mode: str = "exact",
-    rank_nbins: int = DEFAULT_NBINS, fast_impl: str = "xla",
+    rank_nbins: int = DEFAULT_NBINS,
 ):
     """Full ess/rhat pipeline for one symbolic or estimator kind.
 
@@ -484,8 +344,8 @@ def _ess_rhat_pipeline(
     ``(ess, rhat)`` with NaN placeholders where a component is not computed.
 
     ``param_chunk`` bounds peak memory: the parameter axis is processed in
-    chunks of that size with ``lax.map`` (each chunk still saturates the
-    chip; every kernel is per-parameter independent, so chunking is exact).
+    chunks of that size with ``lax.map`` (every kernel is per-parameter
+    independent, so chunking is exact).
 
     ``rank_mode="fast"`` routes the sort-based kinds (bulk/tail/rank) through
     the histogram/CDF transform (ops/fastrank.py) — sort-free, approximate to
@@ -493,14 +353,11 @@ def _ess_rhat_pipeline(
     """
     nparams = x3.shape[2]
     if param_chunk is not None and nparams > param_chunk:
-        # slice-based chunking: the former pad + moveaxis staged TWO extra
-        # full-array copies before any work — at 10k x 128 x 1000 that is
-        # ~10 GB of scratch on a 16 GB chip and the measured wall collapsed
-        # ~13x (report_r4 config 4 first landing). Chunks are now cut with
-        # dynamic_slice inside the map (one chunk-sized copy at a time);
-        # a non-dividing last chunk starts at nparams - chunk and overlaps
-        # its predecessor — per-parameter independence makes the duplicated
-        # columns bit-identical, and the positional scatter keeps one copy.
+        # chunks are cut with dynamic_slice inside the map (one chunk-sized
+        # copy at a time, not a padded full-array copy); a non-dividing last
+        # chunk starts at nparams - chunk and overlaps its predecessor —
+        # per-parameter independence makes the duplicated columns
+        # bit-identical, and the positional scatter keeps one copy.
         nchunks = -(-nparams // param_chunk)
         starts = jnp.minimum(
             jnp.arange(nchunks) * param_chunk,
@@ -513,7 +370,6 @@ def _ess_rhat_pipeline(
                 xc, kind=kind, split_chains=split_chains, maxlag=maxlag,
                 method=method, relative=relative, q=q, fold_merge=fold_merge,
                 rank_mode=rank_mode, rank_nbins=rank_nbins,
-                fast_impl=fast_impl,
             )
 
         ess_c, rhat_c = jax.lax.map(one_chunk, starts)
@@ -525,10 +381,9 @@ def _ess_rhat_pipeline(
         return _fast_kind_pipeline(
             x3, kind=kind, split_chains=split_chains, maxlag=maxlag,
             method=method, relative=relative, q=q, nbins=rank_nbins,
-            fast_impl=fast_impl,
         )
     if rank_mode == "fast" and kind in ("median", "mad", "quantile"):
-        proxy = _fast_expectand_proxy(kind, x3, q, rank_nbins, fast_impl)
+        proxy = _fast_expectand_proxy(kind, x3, q, rank_nbins)
         return _basic_ess_rhat(proxy, split_chains, maxlag, method, relative)
     if kind == "basic":
         return _basic_ess_rhat(x3, split_chains, maxlag, method, relative)
@@ -575,13 +430,13 @@ def _ess_rhat_pipeline(
 
 
 @partial(jax.jit, static_argnames=("kind", "split_chains", "fold_merge",
-                                   "rank_mode", "rank_nbins", "fast_impl"))
+                                   "rank_mode", "rank_nbins"))
 def _rhat_pipeline(x3, *, kind: str, split_chains: int,
                    fold_merge: str | None = None, rank_mode: str = "exact",
-                   rank_nbins: int = DEFAULT_NBINS, fast_impl: str = "xla"):
+                   rank_nbins: int = DEFAULT_NBINS):
     if rank_mode == "fast" and kind in ("bulk", "tail", "rank"):
         return _fast_rhat_pipeline(x3, kind=kind, split_chains=split_chains,
-                                   nbins=rank_nbins, fast_impl=fast_impl)
+                                   nbins=rank_nbins)
     if kind == "basic":
         return _basic_rhat(x3, split_chains)
     if kind == "bulk":
@@ -674,9 +529,8 @@ def ess(
     ``rank_mode="fast"`` replaces EVERY sort-based transform — the
     bulk/tail rank transforms and the median/mad/quantile estimator-proxy
     thresholds — with the histogram/CDF approximation over ``rank_nbins``
-    bins (ops/fastrank.py; zero sorts in the compiled graph, ~2-4x faster
-    on TPU, error bound documented there). ``"exact"`` (default) keeps
-    reference bit-semantics.
+    bins (ops/fastrank.py; zero sorts in the compiled graph, error bound
+    documented there). ``"exact"`` (default) keeps reference bit-semantics.
     """
     _check_rank_mode(rank_mode)
     x3, pshape = canonicalize(samples)
@@ -696,14 +550,13 @@ def ess(
         kind=pipeline_kind,
         split_chains=split_chains,
         maxlag=eff_maxlag,
-        method=_method_name(autocov_method, x3, niter, eff_maxlag),
+        method=_method_name(autocov_method),
         relative=relative,
         q=q,
         param_chunk=param_chunk,
-        fold_merge=_resolve_fold_merge(x3, fold_impl),
+        fold_merge=_resolve_fold_merge(fold_impl),
         rank_mode=rank_mode,
         rank_nbins=rank_nbins,
-        fast_impl=resolve_fast_impl(x3),
     )
     return maybe_scalar(ess_vals, pshape)
 
@@ -723,9 +576,8 @@ def rhat(samples, *, kind: str = "rank", split_chains: int = 2,
     _check_rank_mode(rank_mode)
     x3, pshape = canonicalize(samples)
     vals = _rhat_pipeline(x3, kind=kind, split_chains=split_chains,
-                          fold_merge=_resolve_fold_merge(x3, fold_impl),
-                          rank_mode=rank_mode, rank_nbins=rank_nbins,
-                          fast_impl=resolve_fast_impl(x3))
+                          fold_merge=_resolve_fold_merge(fold_impl),
+                          rank_mode=rank_mode, rank_nbins=rank_nbins)
     return maybe_scalar(vals, pshape)
 
 
@@ -762,9 +614,8 @@ def ess_rhat(
         _warn_short(niter)
         ess_vals = jnp.full(x3.shape[2], jnp.nan, x3.dtype)
         rhat_vals = _rhat_pipeline(x3, kind=kind, split_chains=split_chains,
-                                   fold_merge=_resolve_fold_merge(x3, fold_impl),
-                                   rank_mode=rank_mode, rank_nbins=rank_nbins,
-                                   fast_impl=resolve_fast_impl(x3))
+                                   fold_merge=_resolve_fold_merge(fold_impl),
+                                   rank_mode=rank_mode, rank_nbins=rank_nbins)
         return ESSRhat(maybe_scalar(ess_vals, pshape), maybe_scalar(rhat_vals, pshape))
     eff_maxlag = min(maxlag, niter - 4)
     q = tail_prob if kind == "tail" else None
@@ -773,14 +624,13 @@ def ess_rhat(
         kind=kind,
         split_chains=split_chains,
         maxlag=eff_maxlag,
-        method=_method_name(autocov_method, x3, niter, eff_maxlag),
+        method=_method_name(autocov_method),
         relative=relative,
         q=q,
         param_chunk=param_chunk,
-        fold_merge=_resolve_fold_merge(x3, fold_impl),
+        fold_merge=_resolve_fold_merge(fold_impl),
         rank_mode=rank_mode,
         rank_nbins=rank_nbins,
-        fast_impl=resolve_fast_impl(x3),
     )
     return ESSRhat(maybe_scalar(ess_vals, pshape), maybe_scalar(rhat_vals, pshape))
 
@@ -798,8 +648,7 @@ def _ess_array(x3, estimator, q, *, split_chains=2, maxlag=250, relative=False,
     eff_maxlag = min(maxlag, niter - 4)
     ess_vals, _ = _ess_rhat_pipeline(
         x3, kind=estimator, split_chains=split_chains, maxlag=eff_maxlag,
-        method=_method_name(autocov_method, x3, niter, eff_maxlag),
+        method=_method_name(autocov_method),
         relative=relative, q=q, rank_mode=rank_mode, rank_nbins=rank_nbins,
-        fast_impl=resolve_fast_impl(x3),
     )
     return ess_vals

@@ -7,7 +7,7 @@ whitened between-chain matrix ``L^-1 B L^-T`` and its largest eigenvalue
 (src/gelmandiag.jl:80-105).
 
 Everything is a fused set of chain-axis contractions (the covariance matrices
-are chain-batched matmuls that map straight onto the MXU); the F quantile uses
+are chain-batched matmuls, pinned to full f32 precision); the F quantile uses
 the device-side ``betaincinv``.
 """
 
@@ -20,6 +20,8 @@ import jax.numpy as jnp
 
 from ..ops.special import fdist_quantile
 from ..utils.layout import _float_dtype
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class GelmanResult(NamedTuple):
@@ -56,11 +58,13 @@ def _gelman_core(psi, alpha):
 
     chain_mean = jnp.mean(psi, axis=0)  # psibar: (C, P)
     centered = psi - chain_mean[None]
-    # per-chain covariance matrices: (C, P, P) batched matmul (MXU)
-    s2_full = jnp.einsum("ncp,ncq->cpq", centered, centered) / (niters - 1)
+    # per-chain covariance matrices: (C, P, P) batched matmul
+    s2_full = jnp.einsum("ncp,ncq->cpq", centered, centered,
+                         precision=_HIGHEST) / (niters - 1)
     w_full = jnp.mean(s2_full, axis=0)  # W: (P, P)
     pb_centered = chain_mean - jnp.mean(chain_mean, axis=0, keepdims=True)
-    b_full = niters * (pb_centered.T @ pb_centered) / (nchains - 1)  # B: (P, P)
+    b_full = niters * jnp.matmul(pb_centered.T, pb_centered,
+                                 precision=_HIGHEST) / (nchains - 1)  # B
 
     w = jnp.diagonal(w_full)
     b = jnp.diagonal(b_full)

@@ -26,7 +26,7 @@ def gewekediag(x, *, first: float = 0.1, last: float = 0.5, **mcse_kwargs):
 
     1-d input reproduces the reference scalar semantics bit-for-bit
     (src/gewekediag.jl:19); N-d input dispatches every (chain, parameter)
-    series through the batched TPU kernel (diagnostics/batch.py — one
+    series through the batched kernel (diagnostics/batch.py — one
     fused jit, not draws*chains Python round trips) and returns arrays
     shaped ``(chains, *params)``. ``mcse_kwargs`` are forwarded to
     :func:`mcse` (e.g. ``maxlag``, ``autocov_method``).

@@ -29,7 +29,6 @@ from ..ops.fastrank import (
     build_hist_cdf,
     hist_quantile,
     hist_rank_value,
-    resolve_fast_impl,
 )
 from ..ops.ranknorm import _flatten_sample, _has_nan_cols
 from ..ops.special import betaincinv
@@ -130,26 +129,23 @@ def _mcse_quantile_fast(x3, p: float, ess_kwargs):
         x3, p,
         split_chains=split_chains,
         maxlag=eff_maxlag,
-        method=_method_name(ess_kwargs.get("autocov_method", "auto"), x3,
-                            niter, eff_maxlag),
+        method=_method_name(ess_kwargs.get("autocov_method", "auto")),
         nbins=ess_kwargs.get("rank_nbins", DEFAULT_NBINS),
-        impl=resolve_fast_impl(x3),
     )
 
 
 @partial(jax.jit, static_argnames=("p", "split_chains", "maxlag", "method",
-                                   "nbins", "impl"))
+                                   "nbins"))
 def _mcse_quantile_fast_jit(x3, p: float, *, split_chains: int, maxlag: int,
-                            method, nbins: int, impl: str):
+                            method, nbins: int):
     xf = _flatten_sample(x3)
-    cdf = build_hist_cdf(xf, nbins, impl=impl)
+    cdf = build_hist_cdf(xf, nbins)
     thr = hist_quantile(cdf, (p,), nbins)[0]
     s_eff, _ = _basic_ess_rhat(
         _indicator_leq(x3, thr), split_chains, maxlag, method,
         relative=False,
     )
-    return _mcse_quantile_from_ess_fast(x3, p, s_eff, nbins=nbins,
-                                        impl=impl, cdf=cdf)
+    return _mcse_quantile_from_ess_fast(x3, p, s_eff, nbins=nbins, cdf=cdf)
 
 
 @partial(jax.jit, static_argnames=("p",))
@@ -173,7 +169,7 @@ def _mcse_quantile_from_ess(x3, p: float, s_eff):
 
 
 def _mcse_quantile_from_ess_fast(x3, p: float, s_eff, *, nbins: int,
-                                 impl: str, cdf=None):
+                                 cdf=None):
     """Sort-free Beta error-distribution quantile MCSE (``rank_mode="fast"``).
 
     The reference's inverse ECDF reads the l-th and u-th order statistics of
@@ -190,7 +186,7 @@ def _mcse_quantile_from_ess_fast(x3, p: float, s_eff, *, nbins: int,
     xf = _flatten_sample(x3)
     n = xf.shape[0]
     if cdf is None:
-        cdf = build_hist_cdf(xf, nbins, impl=impl)
+        cdf = build_hist_cdf(xf, nbins)
     alpha = s_eff * p + 1.0
     beta = s_eff * (1.0 - p) + 1.0
     prob_upper = betaincinv(alpha, beta, _NORMCDF1)
@@ -208,7 +204,7 @@ def _mcse_quantile_from_ess_fast(x3, p: float, s_eff, *, nbins: int,
     hi_z = jnp.nan_to_num(jnp.minimum(hi_z, cdf.hi))
     # zoom pass: out-of-range elements clip into the boundary bins, which
     # keeps every in-range rank exact; the padding keeps ranks l/u interior
-    cdf_z = build_hist_cdf(xf, nbins, minmax=(lo_z, hi_z, cdf.bad), impl=impl)
+    cdf_z = build_hist_cdf(xf, nbins, minmax=(lo_z, hi_z, cdf.bad))
     x_l = hist_rank_value(cdf_z, l, nbins)
     x_u = hist_rank_value(cdf_z, u, nbins)
     out = (x_u - x_l) / 2.0
@@ -239,9 +235,8 @@ def _mcse_sbm(x3, f, batch_size: int | None):
         return jax.vmap(f, in_axes=1)(win)  # (P,)
 
     # batch_size vmaps 64 overlapping windows per step instead of a fully
-    # sequential scan over all ~n-b+1 of them — the one remaining
-    # per-window loop in the library (VERDICT r4 weak 5), batched for ANY
-    # callable without assuming its algebra
+    # sequential scan over all ~n-b+1 of them — batched for ANY callable
+    # without assuming its algebra
     vals = jax.lax.map(stat_for_window, starts,
                        batch_size=min(64, nwin))  # (nwin, P)
     mean = jnp.mean(vals, axis=0, keepdims=True)

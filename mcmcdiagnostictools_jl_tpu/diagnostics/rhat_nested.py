@@ -7,7 +7,7 @@ combined as ``rhat = sqrt(1 + var(superchain_means) / mean(Wk + Bk))``
 (src/rhat_nested.jl:127-188). Kinds reuse the rank/bulk/tail transforms
 (src/rhat_nested.jl:98-125).
 
-TPU formulation: chains are permuted so superchains are contiguous, the
+Batched formulation: chains are permuted so superchains are contiguous, the
 superchain axis becomes a real array axis, and both reduction levels are plain
 axis-reductions — on a chain-sharded mesh the inner level reduces locally and
 the outer level is one psum over superchain partial sums.

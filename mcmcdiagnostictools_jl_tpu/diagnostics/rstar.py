@@ -3,7 +3,7 @@
 Mirrors the reference rstar.jl pipeline (src/rstar.jl:22-64): split chain ids
 -> stratified shuffled train/test split -> classifier fit -> R* from the test
 predictions. The classifier seam is the reference's only backend boundary
-(SURVEY.md section 3.4); here it is a duck-typed protocol with a TPU-native
+(SURVEY.md section 3.4); here it is a duck-typed protocol with an on-device
 default, the jitted histogram GBT in ``models.gbt``:
 
 - ``classifier.fit(X, y, num_classes, verbosity) -> state``

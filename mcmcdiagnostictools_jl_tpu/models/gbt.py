@@ -1,30 +1,29 @@
 """On-device histogram gradient-boosted trees for the R* diagnostic.
 
 The reference delegates classification to external MLJ models (EvoTrees /
-XGBoost, src/rstar.jl:47-57). This is the TPU-native default classifier: a
-jitted multiclass softmax GBT designed around the MXU rather than around
-scatter ops:
+XGBoost, src/rstar.jl:47-57). This is the default on-device classifier: a
+jitted multiclass softmax GBT built from matrix products rather than
+scatters:
 
 - quantile-binned features (static ``n_bins``),
 - **shared-structure multi-output trees** (the "multi-output tree" strategy of
   modern XGBoost/LightGBM): ONE tree per boosting round whose structure is
   shared by all classes and whose leaves carry K-dimensional logit updates.
-  The split gain is the per-class gain summed over classes. This is the
-  TPU-native choice because node assignment is shared, so gradient/hessian
-  histograms for ALL classes accumulate in a single matmul,
-- **matmul histograms**: instead of scatter-adds (which serialize on TPU and
-  previously hard-faulted the worker at K~500 classes), the (node, bin)
-  one-hot matrix ``(n, nodes*bins)`` is contracted against the stacked
-  gradient/hessian matrix ``(n, 2K)`` on the MXU — one pass per feature via
-  ``lax.scan``,
+  The split gain is the per-class gain summed over classes. Node assignment
+  is shared, so gradient/hessian histograms for ALL classes accumulate in a
+  single matmul,
+- **matmul histograms**: the (node, bin) one-hot matrix ``(n, nodes*bins)``
+  is contracted against the stacked gradient/hessian matrix ``(n, 2K)`` at
+  full f32 precision — one pass per feature via ``lax.scan`` (a scatter-add
+  histogram is the untried alternative on the GPU, ROADMAP A1),
 - trees grown level-by-level (oblivious layout): every node of a level splits
   simultaneously, so the forest state is fixed-shape arrays and the training
   loop is a ``lax.scan`` over rounds — no data-dependent Python control flow,
   one compiled graph.
 
 Complexity per round: ``max_depth * F`` matmuls of shape
-``(n, nodes*bins) x (n, 2K)`` plus one dense softmax over ``(n, K)`` — all
-MXU/VPU-friendly, zero scatters, zero gathers beyond per-level routing.
+``(n, nodes*bins) x (n, 2K)`` plus one dense softmax over ``(n, K)`` — zero
+scatters, zero gathers beyond per-level routing.
 """
 
 from __future__ import annotations
@@ -300,12 +299,12 @@ def _fit_gbt_core(binned, y, w, *, num_classes, n_rounds, learning_rate,
             n_nodes = 2**depth
             level_offset = 2**depth - 1
 
-            # (node, feature, bin) one-hot against stacked grads: ONE MXU
+            # (node, feature, bin) one-hot against stacked grads: ONE
             # contraction accumulates the histograms of every class, node,
             # feature, and bin simultaneously. Features are chunked only when
             # the one-hot would exceed ~256 MB; the common case is one chunk
             # (a single flat einsum keeps the HLO small — nested scans inside
-            # the rounds scan made remote compilation pathological).
+            # the rounds scan compile slowly).
             cols_per_feat = n_nodes * n_bins
             max_feats = max(
                 1, (256 * 1024 * 1024) // (4 * n * cols_per_feat)
@@ -405,13 +404,14 @@ def _fit_gbt_core(binned, y, w, *, num_classes, n_rounds, learning_rate,
 #
 # At BASELINE config-5 scale (1e4 chains -> 2e4 split-chain classes, ~1e6
 # rows) the dense fit would materialize the (n, 2K) gradient matrix and the
-# (n, K) logits — O(100 GB), far beyond one chip's HBM. The streaming fit
+# (n, K) logits — O(100 GB), beyond one card's memory. The streaming fit
 # never materializes either:
 #
 # - the forest state is the pair (OH, LV): OH (n, rounds*leaves) is the
 #   bf16 one-hot of each row's leaf per past round, LV (rounds*leaves, Kpad)
-#   the leaf logit-updates. Any class-chunk of the logits is ONE MXU matmul
-#   ``OH @ LV[:, c0:c0+kc]`` — exact (0/1 entries, f32 accumulation),
+#   the leaf logit-updates. Any class-chunk of the logits is ONE matmul
+#   ``OH @ LV[:, c0:c0+kc]`` — exact (0/1 entries, f32 leaf values at full
+#   precision, f32 accumulation),
 # - per round: one streaming pass accumulates the softmax normalizer Z, then
 #   each level accumulates split gains chunk-by-chunk (the per-class
 #   histogram cumsums reduce to (nodes, F, B) gain partials before the next
@@ -444,7 +444,8 @@ def _fit_gbt_bigk(binned, y, *, num_classes, n_rounds, learning_rate,
 
     def logits_chunk(oh_hist, lv_all, c0):
         lvc = jax.lax.dynamic_slice(lv_all, (0, c0), (rl, kc))
-        out = jnp.dot(oh_hist, lvc, preferred_element_type=jnp.float32)
+        out = jnp.dot(oh_hist, lvc, preferred_element_type=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)
         return jnp.clip(out, -50.0, 50.0)
 
     def kmask(c0):
@@ -599,7 +600,8 @@ def _predict_stats_bigk(binned, split_feature, split_bin, leaf_value, y,
         c0 = i * kc
         lvc = jax.lax.dynamic_slice(lv_flat, (0, c0), (rl, kc))
         lg = jnp.clip(
-            jnp.dot(oh_hist, lvc, preferred_element_type=jnp.float32),
+            jnp.dot(oh_hist, lvc, preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST),
             -50.0, 50.0,
         )
         km = (c0 + karange) < k

@@ -3,7 +3,7 @@
 The reference's integration test runs DynamicHMC NUTS on a 50-dim Cauchy
 posterior and checks that bulk-ESS is healthy while tail-ESS is poor
 (test/ess_rhat.jl:28-36,377-399, ~2.5 min on CI). This module provides the
-TPU-native replacement: a jittered-trajectory Hamiltonian Monte Carlo sampler
+JAX replacement: a jittered-trajectory Hamiltonian Monte Carlo sampler
 (leapfrog + Metropolis correction, trajectory length randomized per draw to
 avoid resonances), vmapped over chains and scanned over draws — one XLA
 program, gradients via ``jax.grad``.
@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class HMCTrace(NamedTuple):
@@ -68,8 +70,8 @@ def hmc_sample(
             )
 
         xp, pp = jax.lax.fori_loop(0, max_leapfrog, leapfrog, (x, p0))
-        h0 = potential(x) + 0.5 * jnp.dot(p0, p0)
-        h1 = potential(xp) + 0.5 * jnp.dot(pp, pp)
+        h0 = potential(x) + 0.5 * jnp.dot(p0, p0, precision=_HIGHEST)
+        h1 = potential(xp) + 0.5 * jnp.dot(pp, pp, precision=_HIGHEST)
         log_accept = jnp.minimum(0.0, h0 - h1)
         accept = jnp.log(jax.random.uniform(k_acc, ())) < log_accept
         x_next = jnp.where(accept, xp, x)

@@ -8,7 +8,7 @@ object without materializing a pmf), construction is O(n): moments come
 straight from ``probs`` and the pmf is computed lazily on the first
 ``pdf``/``cdf``/``quantile`` call — at config-5 scale (ntest ~ 3e5) the
 eager O(n^2) DP was ~9e10 host FLOPs that ``mean()`` (all the benchmark and
-most callers read) never needed (round-3 verdict, weak #3). When the pmf IS
+most callers read) never needed. When the pmf IS
 needed, n > ~2k uses the divide-and-conquer FFT polynomial product
 (O(n log^2 n), SURVEY.md section 7) instead of the O(n^2) DP; the two agree
 to ~1e-12 (property-tested).

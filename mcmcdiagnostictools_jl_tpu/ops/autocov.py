@@ -82,7 +82,7 @@ def _mean_autocov_fft(centered, chain_var, maxlag: int):
 def _mean_autocov_direct(centered, chain_var, maxlag: int):
     """Literal biased estimator: mean over chains of dot(x[:n-k], x[k:]) / n.
 
-    lax.scan over the lag axis with a rolling shifted copy — O(n*L) VPU work,
+    lax.scan over the lag axis with a rolling shifted copy — O(n*L) work,
     used for parity testing rather than throughput.
     """
     del chain_var
@@ -121,23 +121,10 @@ def _mean_autocov_bda(centered, chain_var, maxlag: int):
     return mean_chain_var[None] - jnp.mean(vario, axis=1)  # (L+1, P)
 
 
-def _mean_autocov_pallas(centered, chain_var, maxlag: int, *, interpret=False):
-    """Direct estimator via the Pallas VMEM-resident lag kernel — the TPU fast
-    path (see ops/pallas/autocov_kernel.py). Numerically the AutocovMethod
-    estimator: one HBM pass instead of the FFT's padded complex round-trip."""
-    del chain_var
-    from .pallas.autocov_kernel import pallas_autocov
-
-    c = pallas_autocov(centered, maxlag, interpret=interpret)  # (L+1, C, P)
-    return jnp.mean(c, axis=1)
-
-
 _METHODS = {
     "fft": _mean_autocov_fft,
     "direct": _mean_autocov_direct,
     "bda": _mean_autocov_bda,
-    "pallas": _mean_autocov_pallas,
-    "pallas_interpret": lambda c, v, L: _mean_autocov_pallas(c, v, L, interpret=True),
 }
 
 

@@ -1,36 +1,36 @@
 """Histogram/CDF rank transform — the f32 fast mode (``rank_mode="fast"``).
 
-The exact rank pipeline (ops/ranknorm.py) is sort-bound on TPU: the key sort
-and the inverse-permutation sort together are ~70% of the rank-kind wall and
-both sit at the machine's bitonic-sort roofline (PERF.md round 3 "lane
-closed"). Fast mode replaces BOTH sorts with a fixed-width histogram CDF:
+The exact rank pipeline (ops/ranknorm.py) is sort-bound: the key sort and
+the fold sort dominate the rank-kind wall. Fast mode replaces
+BOTH sorts with a fixed-width histogram CDF:
 
 1. per-column ``[lo, hi]`` from one min/max pass;
-2. per-column bin counts and within-bin first moments over ``nbins``
-   equal-width bins — MXU radix matmuls: the bin index splits into
-   coarse x fine digits, the two digit one-hots contract over rows
-   (``einsum('ikp,ifp->kfp')``, a per-column 0/1 matmul; f32 accumulation of
-   0/1 products is exact for counts < 2^24). A scatter-add histogram
-   measured 580 ms at (1.28M, 64) on v5e; the radix matmul is ~50 ms and a
-   Pallas fusion of the one-hot construction removes even that traffic.
+2. per-column bin counts, within-bin first moments and within-bin position
+   range over ``nbins`` equal-width bins — one scatter pass (integer
+   counts, so they are exact and independent of summation order);
 3. exclusive prefix ``C[k]`` = elements in bins below ``k``;
 4. per element, the **mean-anchored interpolated rank**
 
        rank = C[b] + cnt[b] * clip(frac - fm[b] + 1/2, 0, 1) + 1/2
 
    where ``frac`` is the element's position inside its bin and ``fm[b]`` the
-   bin's mean position. Then the same Blom ``(r - 3/8)/(n + 1/4)`` + ``ndtri``
-   transform as the exact path (reference semantics: src/utils.jl:169-193).
+   bin's mean position, read with one gather of the per-bin tables. Then the
+   same Blom ``(r - 3/8)/(n + 1/4)`` + ``ndtri`` transform as the exact path
+   (reference semantics: src/utils.jl:169-193).
 
 Anchoring the within-bin CDF at the bin mean (instead of assuming a uniform
 spread) makes *point masses exact*: a tied group occupies one bin with
 ``frac == fm``, so every member gets ``C[b] + cnt[b]/2 + 1/2`` — precisely
 StatsBase.tiedrank's tied-average — regardless of where in the bin the value
-sits. Singleton bins are exact for the same reason. A uniform-filled bin has
-``fm ~= 1/2`` and the formula degrades gracefully to plain linear
-interpolation. No sort, no gather at (N,) granularity, no inverse
-permutation: elements are transformed in place, so the (draw, chain) order
-never leaves the array and the tail kind's fold transform needs no routing.
+sits. ``fm`` is clamped to the frac range of the bin's smallest and largest
+member, so a pure bin's anchor equals its members' ``frac`` bit for bit
+whatever order the frac sum was accumulated in; quantiles that land in a
+pure bin return the member value itself, so the fold transform's median is
+exact on discrete draws too. Singleton bins are exact for the same reason. A
+uniform-filled bin has ``fm ~= 1/2`` and the formula degrades gracefully to
+plain linear interpolation. No sort, no inverse permutation: elements are
+transformed in place, so the (draw, chain) order never leaves the array and
+the tail kind's fold transform needs no routing.
 
 Error bound (tested in tests/test_fastrank.py): exact ties share a bin and
 map to identical z. Within bin ``b`` both the exact tied ranks and the
@@ -61,21 +61,6 @@ import jax.numpy as jnp
 from jax.scipy.special import ndtri
 
 DEFAULT_NBINS = 4096
-# Fuse Blom+ndtri (inline AS241) into the Pallas rank-lookup kernel?
-# Built and MEASURED OFF in round 5: the lookup kernel is VPU-bound, so the
-# ~30 extra VPU ops/element of the in-kernel ndtri cost MORE than the
-# XLA-side elementwise pass they replace (bench.py A/B on v5e:
-# 0.469 s non-fused vs 0.556 s fused at 10k x 128 x 256) — XLA overlaps
-# the separate Blom/ndtri pass with the kernels' HBM traffic essentially
-# for free. The fused path stays available (pallas_rank_lookup blom_n=...)
-# and tested; flip this if a future kernel becomes MXU/HBM-bound instead.
-FUSE_BLOM_Z = False
-# radix split: nbins = coarse * fine; 64 keeps both one-hot operands at MXU
-# native tile width
-_RADIX_FINE = 64
-# rows per scan step of the radix matmuls (bounds the one-hot
-# materialization per step; total HBM traffic is chunk-independent)
-_HIST_CHUNK = 8192
 
 
 class HistCDF(NamedTuple):
@@ -83,11 +68,14 @@ class HistCDF(NamedTuple):
 
     ``cum``:  (nbins+1, P) prefix counts; ``cum[k]`` = elements in bins
               ``< k`` (``cum[0] = 0``, ``cum[nbins] = n``).
-    ``fm``:   (nbins, P) mean within-bin position in [0, 1] (1/2 for empty
-              bins) — the interpolation anchor.
+    ``fm``:   (nbins, P) mean within-bin position in [0, 1], clamped to the
+              bin's observed frac range (1/2 for empty bins) — the
+              interpolation anchor.
     ``lo``/``hi``: (P,) bin-range endpoints (degenerate columns: lo == hi).
     ``n``:    total element count (the GLOBAL count in the sharded case).
     ``bad``:  (P,) NaN-poisoned columns.
+    ``point``: (nbins, P) the common value of a bin whose members are all
+              equal (a point mass or a singleton), NaN elsewhere.
     """
 
     cum: jnp.ndarray
@@ -96,6 +84,7 @@ class HistCDF(NamedTuple):
     hi: jnp.ndarray
     n: int
     bad: jnp.ndarray
+    point: jnp.ndarray
 
     @property
     def counts(self):
@@ -137,170 +126,79 @@ def _bin_coords(xf, lo, hi, nbins: int):
     return b, s - b.astype(s.dtype)
 
 
-def histogram_moments(b, frac, nbins: int, chunk: int = _HIST_CHUNK):
-    """Per-column bin counts and frac-sums via MXU radix matmuls.
+def histogram_moments(xf, b, frac, nbins: int):
+    """Per-column bin statistics of an (N, P) sample with bins ``b`` and
+    within-bin positions ``frac`` (``_bin_coords``).
 
-    ``b``: (N, P) int32 bins; ``frac``: (N, P) within-bin positions.
-    Returns ``(cnt, s1)`` both (nbins, P) f32 — count and sum-of-frac per
-    bin. Two einsum passes per row chunk: the count pass contracts the two
-    0/1 digit one-hots in bf16 (exact: 0/1 products, f32 accumulation); the
-    moment pass carries ``frac`` on the coarse operand in f32 (frac in
-    [0, 1], so accumulated absolute error is ~cnt * 2^-24 — harmless to the
-    interpolation anchor).
+    Returns ``(cnt, s1, vmin, vmax)``, each (nbins, P): int32 counts, the
+    sum of ``frac``, and the smallest and largest member value (+inf / -inf
+    for empty bins). One scatter per statistic; the counts are integers, so
+    they are exact for any n and any order of accumulation.
     """
-    n, p = b.shape
-    kf = min(_RADIX_FINE, nbins)
-    kc = nbins // kf
-    assert kc * kf == nbins, (nbins, kf)
-    npad = (-n) % chunk
-    if npad:
-        # pad rows carry bin id "nbins": coarse digit kc is out of range, so
-        # both one-hot encodings are all-zero rows adding 0 to every bin
-        b = jnp.pad(b, ((0, npad), (0, 0)), constant_values=nbins)
-        frac = jnp.pad(frac, ((0, npad), (0, 0)))
-    nchunks = b.shape[0] // chunk
-    bc = b.reshape(nchunks, chunk, p)
-    fr = frac.reshape(nchunks, chunk, p).astype(jnp.float32)
-    iota_c = jnp.arange(kc, dtype=jnp.int32)
-    iota_f = jnp.arange(kf, dtype=jnp.int32)
-
-    def body(carry, operand):
-        cnt_acc, s1_acc = carry
-        bi, fi = operand
-        c = bi // kf
-        f = bi % kf
-        ac = c[:, None, :] == iota_c[None, :, None]
-        af = f[:, None, :] == iota_f[None, :, None]
-        cnt = jnp.einsum(
-            "ikp,ifp->kfp",
-            ac.astype(jnp.bfloat16),
-            af.astype(jnp.bfloat16),
-            preferred_element_type=jnp.float32,
-        )
-        s1 = jnp.einsum(
-            "ikp,ifp->kfp",
-            jnp.where(ac, fi[:, None, :], 0.0),
-            af.astype(jnp.float32),
-            preferred_element_type=jnp.float32,
-        )
-        return (cnt_acc + cnt, s1_acc + s1), None
-
-    # derive the carry init from the input so its varying-manual-axes type
-    # matches the body output under shard_map (zeros alone are unvarying and
-    # the scan carry type check rejects the mix)
-    zero = jnp.zeros((kc, kf, p), jnp.float32) + 0.0 * fr[0, 0, 0]
-    (cnt, s1), _ = jax.lax.scan(body, (zero, zero), (bc, fr))
-    return cnt.reshape(nbins, p), s1.reshape(nbins, p)
+    p = b.shape[1]
+    v = jnp.nan_to_num(xf).astype(frac.dtype)
+    cols = jax.lax.broadcasted_iota(jnp.int32, b.shape, 1)
+    cnt = jnp.zeros((nbins, p), jnp.int32).at[b, cols].add(1)
+    s1 = jnp.zeros((nbins, p), frac.dtype).at[b, cols].add(frac)
+    vmin = jnp.full((nbins, p), jnp.inf, frac.dtype).at[b, cols].min(v)
+    vmax = jnp.full((nbins, p), -jnp.inf, frac.dtype).at[b, cols].max(v)
+    return cnt, s1, vmin, vmax
 
 
-def radix_table_lookup(b, tables, nbins: int, chunk: int = _HIST_CHUNK):
-    """Per-element lookup of W stacked (nbins, P) tables at (N, P) bins.
+def lookup_bins(b, tables):
+    """Per-element lookup of stacked (nbins, P, W) tables at (N, P) bins.
 
-    Returns (W, N, P). MXU formulation of a gather: contract the coarse
-    one-hot with the (kc, kf*W) table block, then select the fine digit —
-    ``take_along_axis`` at this shape measured 1.24 s on v5e (worse than the
-    sort it replaces) while this is ~80 ms per table; the Pallas fusion
-    (ops/pallas/fastrank_kernel.py) removes the one-hot traffic entirely.
+    Returns (W, N, P): one gather of W-wide rows.
     """
-    n, p = b.shape
-    w = tables.shape[0]
-    kf = min(_RADIX_FINE, nbins)
-    kc = nbins // kf
-    t4 = tables.reshape(w, kc, kf, p)
-    npad = (-n) % chunk
-    if npad:
-        b = jnp.pad(b, ((0, npad), (0, 0)))  # pad rows read bin 0: discarded
-    nchunks = b.shape[0] // chunk
-    bc = b.reshape(nchunks, chunk, p)
-    iota_c = jnp.arange(kc, dtype=jnp.int32)
-    iota_f = jnp.arange(kf, dtype=jnp.int32)
-
-    def body(_, bi):
-        c = bi // kf
-        f = bi % kf
-        ac = (c[:, None, :] == iota_c[None, :, None]).astype(jnp.float32)
-        # rows of every table for the element's coarse bin: (i, w*kf, p)
-        rows = jnp.einsum(
-            "ikp,kqp->iqp",
-            ac,
-            t4.transpose(1, 0, 2, 3).reshape(kc, w * kf, p),
-            preferred_element_type=jnp.float32,
-        ).reshape(chunk, w, kf, p)
-        af = (f[:, None, :] == iota_f[None, :, None]).astype(jnp.float32)
-        return None, jnp.einsum("iwfp,ifp->wip", rows, af)
-
-    _, out = jax.lax.scan(body, None, bc)
-    # (nchunks, w, chunk, p) -> (w, n, p)
-    return jnp.moveaxis(out, 1, 0).reshape(w, -1, p)[:, :n, :]
+    cols = jax.lax.broadcasted_iota(jnp.int32, b.shape, 1)
+    return jnp.moveaxis(tables[b, cols], -1, 0)
 
 
-def _hist_scale(lo, hi, nbins: int):
-    width = hi - lo
-    return jnp.where(width > 0, nbins / width, 0.0)
-
-
-def build_hist_cdf(xf, nbins: int = DEFAULT_NBINS, chunk: int = _HIST_CHUNK,
-                   minmax=None, psum_axis: str | None = None, n_global=None,
-                   impl: str = "xla"):
+def build_hist_cdf(xf, nbins: int = DEFAULT_NBINS, minmax=None,
+                   psum_axis: str | None = None, n_global=None):
     """Histogram CDF of a flat (N, P) sample.
 
-    One min/max pass + one radix-matmul pass + an O(nbins) prefix sum.
-    ``psum_axis``: inside ``shard_map``, reduce the bin moments over that
+    One min/max pass + one scatter pass + an O(nbins) prefix sum.
+    ``psum_axis``: inside ``shard_map``, reduce the bin statistics over that
     mesh axis — the entire communication cost of the distributed rank
     transform (``minmax`` must then be the global (lo, hi, bad), and
-    ``n_global`` the global element count). ``impl``: ``"xla"`` (radix
-    matmul, any backend) or ``"pallas"``/``"pallas_interpret"`` (fused VMEM
-    one-hots, ops/pallas/fastrank_kernel.py — the TPU f32 fast path).
+    ``n_global`` the global element count).
     """
     if minmax is not None:
         lo, hi, bad = minmax
-    elif impl in ("pallas", "pallas_interpret"):
-        from .pallas.fastrank_kernel import pallas_column_minmax
-
-        lo, hi, bad = pallas_column_minmax(
-            xf, interpret=(impl == "pallas_interpret")
-        )
     else:
         lo, hi, bad = column_minmax(xf)
-    if impl in ("pallas", "pallas_interpret"):
-        from .pallas.fastrank_kernel import pallas_hist_moments
-
-        cnt, s1 = pallas_hist_moments(
-            xf, lo, _hist_scale(lo, hi, nbins), nbins,
-            interpret=(impl == "pallas_interpret"),
-        )
-    else:
-        b, frac = _bin_coords(xf, lo, hi, nbins)
-        cnt, s1 = histogram_moments(b, frac, nbins, chunk)
+    b, frac = _bin_coords(xf, lo, hi, nbins)
+    cnt, s1, vmin, vmax = histogram_moments(xf, b, frac, nbins)
     n = xf.shape[0]
     if psum_axis is not None:
         cnt, s1 = jax.lax.psum((cnt, s1), psum_axis)
+        vmin = jax.lax.pmin(vmin, psum_axis)
+        vmax = jax.lax.pmax(vmax, psum_axis)
         n = n_global if n_global is not None else n * jax.lax.psum(1, psum_axis)
-    fm = jnp.where(cnt > 0, s1 / jnp.maximum(cnt, 1.0), 0.5)
+    occupied = cnt > 0
+    # the frac of the bin's extreme members, by the same arithmetic that
+    # placed them: bitwise equal to their own frac
+    _, fmin = _bin_coords(jnp.where(occupied, vmin, 0.0), lo, hi, nbins)
+    _, fmax = _bin_coords(jnp.where(occupied, vmax, 0.0), lo, hi, nbins)
+    fm = jnp.clip(s1 / jnp.maximum(cnt, 1).astype(s1.dtype), fmin, fmax)
+    fm = jnp.where(occupied, fm, 0.5)
+    point = jnp.where(occupied & (vmin == vmax), vmin, jnp.nan)
     cum = jnp.pad(jnp.cumsum(cnt, axis=0), ((1, 0), (0, 0)))
-    return HistCDF(cum, fm, lo, hi, n, bad)
+    return HistCDF(cum.astype(s1.dtype), fm, lo, hi, n, bad, point)
 
 
-def interpolated_ranks(xf, cdf: HistCDF, nbins: int,
-                       chunk: int = _HIST_CHUNK, impl: str = "xla"):
+def interpolated_ranks(xf, cdf: HistCDF, nbins: int):
     """Per-element mean-anchored rank in [1/2, n + 1/2], original order.
 
     Degenerate (constant) columns get the exact tied rank ``(n+1)/2``.
     """
     cnt = cdf.counts
-    tables = jnp.stack([cdf.cum[:-1], cnt, cnt * (0.5 - cdf.fm)], axis=0)
-    if impl in ("pallas", "pallas_interpret"):
-        from .pallas.fastrank_kernel import pallas_rank_lookup
-
-        rank = pallas_rank_lookup(
-            xf, cdf.lo, _hist_scale(cdf.lo, cdf.hi, nbins), tables, nbins,
-            interpret=(impl == "pallas_interpret"),
-        ).astype(xf.dtype)
-    else:
-        b, frac = _bin_coords(xf, cdf.lo, cdf.hi, nbins)
-        c_lo, cnt_b, off_b = radix_table_lookup(b, tables, nbins, chunk)
-        g = jnp.clip(frac * cnt_b + off_b, 0.0, cnt_b)
-        rank = c_lo + g + 0.5
+    tables = jnp.stack([cdf.cum[:-1], cnt, cnt * (0.5 - cdf.fm)], axis=-1)
+    b, frac = _bin_coords(xf, cdf.lo, cdf.hi, nbins)
+    c_lo, cnt_b, off_b = lookup_bins(b, tables)
+    g = jnp.clip(frac * cnt_b + off_b, 0.0, cnt_b)
+    rank = c_lo + g + 0.5
     degenerate = (cdf.hi <= cdf.lo)[None, :]
     return jnp.where(degenerate, (cdf.n + 1) * 0.5, rank)
 
@@ -320,8 +218,8 @@ def hist_rank_value(cdf: HistCDF, h, nbins: int):
     has rank i, 1-based). The covering bin comes from an O(nbins) comparison
     count (the table is small — no sort, no per-element work), the
     within-bin position from the inverse of the anchored interpolation.
-    Error bounded by one bin width; point-mass bins return (approximately)
-    the mass location itself. Per-column ``h`` is what the MCSE quantile
+    Error bounded by one bin width; a bin whose members are all equal
+    returns their value exactly. Per-column ``h`` is what the MCSE quantile
     path needs: its Beta-interval order statistics depend on the per-column
     ESS (src/mcse.jl:111-117).
     """
@@ -335,11 +233,13 @@ def hist_rank_value(cdf: HistCDF, h, nbins: int):
     c_lo = jnp.take_along_axis(cum, kk, axis=0)[0]
     cnt = jnp.take_along_axis(cdf.counts, kk, axis=0)[0]
     fm = jnp.take_along_axis(cdf.fm, kk, axis=0)[0]
+    point = jnp.take_along_axis(cdf.point, kk, axis=0)[0]
     # invert rank = c_lo + clip(frac*cnt + cnt*(1/2 - fm), 0, cnt) + 1/2
     g = jnp.clip(h - 0.5 - c_lo, 0.0, cnt)
     frac = jnp.where(cnt > 0, g / jnp.maximum(cnt, 1.0) + fm - 0.5, 0.5)
     frac = jnp.clip(frac, 0.0, 1.0)
     v = cdf.lo + (k.astype(cum.dtype) + frac) * width
+    v = jnp.where(jnp.isnan(point), v, point.astype(v.dtype))
     v = jnp.where(cdf.hi <= cdf.lo, cdf.lo, v)
     return jnp.where(cdf.bad, jnp.nan, v)
 
@@ -358,74 +258,33 @@ def hist_quantile(cdf: HistCDF, ps, nbins: int):
     )
 
 
-def resolve_fast_impl(x3) -> str:
-    """Pick the fast-mode kernel implementation from where the computation
-    will run: fused Pallas on TPU f32 inputs, XLA radix matmuls elsewhere
-    (any backend, any dtype). Mirrors ``_auto_method``'s device resolution.
-
-    The Pallas kernels hard-require f32 (their VMEM scratch is f32, and a
-    bf16 block store into it is a Mosaic dtype error), so any other dtype —
-    including bf16/f16, whose bin arithmetic the XLA path upcasts in
-    ``_bin_coords`` — falls back to ``"xla"``.
-    """
-    platform = None
-    try:
-        platform = next(iter(x3.devices())).platform
-    except Exception:
-        platform = None  # tracer or non-jax input
-    if platform is None:
-        platform = jax.default_backend()
-    dtype = jnp.dtype(getattr(x3, "dtype", jnp.float32))
-    return "pallas" if (platform == "tpu" and dtype == jnp.float32) else "xla"
-
-
-def fast_rank_normalize_flat(xf, nbins: int = DEFAULT_NBINS, cdf=None,
-                             impl: str = "xla"):
+def fast_rank_normalize_flat(xf, nbins: int = DEFAULT_NBINS, cdf=None):
     """Histogram rank-normal transform of a flat (N, P) sample, in place.
 
     Returns ``(z, cdf)`` — ``z`` in ORIGINAL row order (no sort, no inverse
     permutation) and the CDF for quantile reuse (median for the fold
     transform, tail thresholds). Pass a prebuilt ``cdf`` (e.g. one whose
     moments were psummed across shards) to skip the histogram pass.
-
-    With ``FUSE_BLOM_Z`` the Pallas path fuses Blom + ndtri into the lookup
-    kernel (inline AS241 — ops/pallas/fastrank_kernel.ppnd7); measured OFF
-    by default (see the flag's rationale), so both paths normally finish
-    with the separate ``z_from_ranks`` step.
     """
     if cdf is None:
-        cdf = build_hist_cdf(xf, nbins, impl=impl)
-    if (FUSE_BLOM_Z and impl in ("pallas", "pallas_interpret")
-            and isinstance(cdf.n, int)):
-        from .pallas.fastrank_kernel import pallas_rank_lookup
-
-        cnt = cdf.counts
-        tables = jnp.stack([cdf.cum[:-1], cnt, cnt * (0.5 - cdf.fm)], axis=0)
-        z = pallas_rank_lookup(
-            xf, cdf.lo, _hist_scale(cdf.lo, cdf.hi, nbins), tables, nbins,
-            blom_n=cdf.n, interpret=(impl == "pallas_interpret"),
-        ).astype(xf.dtype)
-        # degenerate (constant) columns carry the exact tied rank (n+1)/2
-        z_deg = ndtri(((cdf.n + 1) * 0.5 - 0.375) / (cdf.n + 0.25))
-        z = jnp.where((cdf.hi <= cdf.lo)[None, :], z_deg.astype(z.dtype), z)
-        return jnp.where(cdf.bad[None, :], jnp.nan, z), cdf
-    rank = interpolated_ranks(xf, cdf, nbins, impl=impl)
+        cdf = build_hist_cdf(xf, nbins)
+    rank = interpolated_ranks(xf, cdf, nbins)
     return z_from_ranks(rank, cdf.n, cdf.bad), cdf
 
 
-def fast_rank_normalize(x3, nbins: int = DEFAULT_NBINS, impl: str = "xla"):
+def fast_rank_normalize(x3, nbins: int = DEFAULT_NBINS):
     """Histogram rank-normal transform on canonical (draws, chains, P)."""
     d, c, p = x3.shape
-    z, _ = fast_rank_normalize_flat(x3.reshape(d * c, p), nbins, impl=impl)
+    z, _ = fast_rank_normalize_flat(x3.reshape(d * c, p), nbins)
     return z.reshape(d, c, p)
 
 
-def _folded_cdf(folded, cdf: HistCDF, med, nbins: int, impl: str):
+def _folded_cdf(folded, cdf: HistCDF, med, nbins: int):
     """Histogram CDF of ``|x - med|`` with its range DERIVED from the bulk
     CDF instead of a second min/max pass over the sample: lo = 0 (a valid
     lower bound — at worst the bottom bins sit empty, which only tightens
     occupancy) and hi = max(hi - med, med - lo). Saves a full-sample
-    reduction per transform (~36 ms at (1.28M, 256) on v5e)."""
+    reduction per transform."""
     m = jnp.nan_to_num(med)
     hi_f = jnp.maximum(cdf.hi - m, m - cdf.lo)
     hi_f = jnp.where(hi_f > 0, hi_f, 1.0)
@@ -433,11 +292,10 @@ def _folded_cdf(folded, cdf: HistCDF, med, nbins: int, impl: str):
     # degenerate columns: propagate the bulk degeneracy (hi <= lo) so the
     # tied-rank override still fires
     hi_f = jnp.where(cdf.hi <= cdf.lo, lo_f, hi_f)
-    return build_hist_cdf(folded, nbins, minmax=(lo_f, hi_f, cdf.bad),
-                          impl=impl)
+    return build_hist_cdf(folded, nbins, minmax=(lo_f, hi_f, cdf.bad))
 
 
-def fast_rank_bulk_tail(x3, nbins: int = DEFAULT_NBINS, impl: str = "xla"):
+def fast_rank_bulk_tail(x3, nbins: int = DEFAULT_NBINS):
     """Fused fast-mode transform pair ``(z_bulk, z_tail, med)``.
 
     The rank kind's two inputs (src/ess_rhat.jl:604-624) with zero sorts:
@@ -448,12 +306,11 @@ def fast_rank_bulk_tail(x3, nbins: int = DEFAULT_NBINS, impl: str = "xla"):
     """
     d, c, p = x3.shape
     xf = x3.reshape(d * c, p)
-    z_bulk, cdf = fast_rank_normalize_flat(xf, nbins, impl=impl)
+    z_bulk, cdf = fast_rank_normalize_flat(xf, nbins)
     med = hist_quantile(cdf, (0.5,), nbins)[0]
     folded = jnp.abs(xf - jnp.nan_to_num(med)[None, :])
     z_tail, _ = fast_rank_normalize_flat(
-        folded, nbins, impl=impl, cdf=_folded_cdf(folded, cdf, med, nbins,
-                                                  impl))
+        folded, nbins, cdf=_folded_cdf(folded, cdf, med, nbins))
     z_tail = jnp.where(cdf.bad[None, :], jnp.nan, z_tail)
     return (
         z_bulk.reshape(d, c, p),

@@ -61,25 +61,3 @@ def chain_stats(samples) -> ChainStats:
     chain_var = jnp.sum(centered * centered, axis=0) / (niter - 1)  # (C, P)
     degenerate = jnp.all(samples == samples[0, 0][None, None], axis=(0, 1))
     return stats_from_chain_moments(chain_mean, chain_var, niter, degenerate)
-
-
-def fused_chain_stats_autocov(samples, maxlag: int, *, interpret: bool = False):
-    """One-HBM-pass ``(ChainStats, mean-autocov curve)`` via the fused Pallas
-    kernel (ops/pallas/fused_basic_kernel.py).
-
-    The curve is the reference-default direct estimator (AutocovMethod,
-    src/ess_rhat.jl:161-179), averaged over chains -> ``(maxlag+1, P)``. The
-    all-identical degeneracy flag is reconstructed from on-chip min/max: every
-    sample in the slice is identical iff the global min equals the global max
-    (NaN inputs compare unequal, so NaN slices are not flagged — they already
-    propagate NaN, matching ``chain_stats``).
-    """
-    from .pallas.fused_basic_kernel import pallas_moments_autocov
-
-    niter = samples.shape[0]
-    chain_mean, chain_var, smin, smax, acov = pallas_moments_autocov(
-        samples, maxlag, interpret=interpret
-    )
-    degenerate = jnp.min(smin, axis=0) == jnp.max(smax, axis=0)
-    stats = stats_from_chain_moments(chain_mean, chain_var, niter, degenerate)
-    return stats, jnp.mean(acov, axis=1)

@@ -26,13 +26,20 @@ from jax.scipy.special import ndtri
 def _sort_pair(keys, payload):
     """Ascending unstable sort along axis 0 carrying a payload.
 
-    ``lax.sort`` (XLA's bitonic network) is already at this machine's HBM
-    roofline for a bitonic schedule (PERF.md "Machine roofline"); a
-    VMEM-staged Pallas sort was built, measured at 0.32x-1.06x, bounded at
-    ~1.5x by pass-count analysis, and deleted. Unstable is safe here because
-    tied ranks are averaged and inverse-permutation keys are unique.
+    Unstable is safe here because tied ranks are averaged.
     """
     return jax.lax.sort((keys, payload), dimension=0, num_keys=1, is_stable=False)
+
+
+def _unpermute(order, values):
+    """Route ``values`` back to original rows: ``out[order[j], p] =
+    values[j, p]`` for a per-column permutation ``order`` — the inverse of
+    a payload sort, as one scatter with unique indices. (As a second sort
+    keyed on ``order``, XLA:GPU's permutation-sort rewrite produced an
+    invalid scatter inside ``shard_map``.)"""
+    cols = jax.lax.broadcasted_iota(jnp.int32, order.shape, 1)
+    return jnp.zeros_like(values).at[order, cols].set(
+        values, unique_indices=True)
 
 
 def _flatten_sample(x3):
@@ -52,10 +59,9 @@ def tiedrank(xf):
     Equal values receive the average of the ranks they would occupy. Matches
     StatsBase.tiedrank used by the reference (src/utils.jl:180).
 
-    TPU formulation: two payload-carrying sorts — the permutation rides the
-    sorting network both ways, gather/scatter free (per-element gathers are
-    slow on TPU), fully batched over P. Unstable sorts are safe: tied ranks
-    are averaged and the inverse-sort keys are a permutation (unique).
+    One payload-carrying sort and one scatter back to the original rows,
+    fully batched over P. Unstable sorts are safe: tied
+    ranks are averaged.
     """
     iota = jax.lax.broadcasted_iota(jnp.int32, xf.shape, 0)
     xs, order = _sort_pair(xf, iota)
@@ -85,8 +91,7 @@ def _avg_ranks_sorted(xs):
 def _tiedrank_sorted(xs, order):
     """Ranks in original positions from a presorted (values, permutation) pair."""
     avg_rank_sorted = _avg_ranks_sorted(xs)
-    _, ranks = _sort_pair(order, avg_rank_sorted)
-    return ranks
+    return _unpermute(order, avg_rank_sorted)
 
 
 def rank_normalize_folded_sorted(xs, order, med):
@@ -98,24 +103,21 @@ def rank_normalize_folded_sorted(xs, order, med):
     — numerically identical to ``rank_normalize(|x - med|)``.
 
     Although the folded values form a valley in xs-order (sortable by one
-    bitonic merge), the XLA-level merge costs ~2.4x a full ``lax.sort`` on
-    TPU (its 21 stages don't fuse; PERF.md), so this uses a plain payload
-    sort. The payload is ``order`` so the inverse sort lands directly in
-    original row order (one inverse, not two).
+    bitonic merge), a merge written stage by stage in XLA does not fuse, so
+    this uses a plain payload sort. The payload is ``order`` so one scatter
+    lands the result directly in original row order.
     """
     n = xs.shape[0]
     folded = jnp.abs(xs - med[None, :])
     fs, forder = _sort_pair(folded, order)
     ranks_sorted = _avg_ranks_sorted(fs)
-    _, z = _sort_pair(forder, ndtri((ranks_sorted - 0.375) / (n + 0.25)))
+    z = _unpermute(forder, ndtri((ranks_sorted - 0.375) / (n + 0.25)))
     bad = _has_nan_cols(xs)[None, :]
     return jnp.where(bad, jnp.nan, z)
 
 
 # Fold-sort decomposition block length: the valley two-sort reshapes the
-# flattened sample to (ceil(N/S), S) and sorts each axis once. Measured on
-# v5e at (1.28M, 64): full payload lax.sort 188 ms vs 91-100 ms for the
-# two-sort across S in {512, 2048, 8192} (PERF.md round 3).
+# flattened sample to (ceil(N/S), S) and sorts each axis once.
 _VALLEY_BLOCK = 8192
 
 
@@ -126,8 +128,8 @@ def valley_sort_2d(keys, payload, s: int = _VALLEY_BLOCK):
     ``xs`` is sorted (fold transform, reference src/utils.jl:148-158 applied
     to a sorted sample). A bitonic sequence needs only a log-depth bitonic
     merge, not a full sort; expressed stage-by-stage at the XLA level the
-    merge does not fuse (465 ms vs 192 ms for a plain sort, PERF.md "Valley
-    merge post-mortem"), but it DECOMPOSES into two batched small-axis sorts:
+    merge does not fuse, but it DECOMPOSES into two batched small-axis
+    sorts:
 
     view the (virtually inf-padded) sequence as ``(M, S)`` with flat index
     ``i = m * S + low``. Every m-column (fixed ``low``) is a subsequence of a
@@ -136,12 +138,9 @@ def valley_sort_2d(keys, payload, s: int = _VALLEY_BLOCK):
     m-column. After that, the standard bitonic-merge recursion invariant
     says each contiguous S-block is bitonic with blocks ordered, so sorting
     within blocks (axis 1) completes the global sort. Two ``lax.sort`` calls
-    over short axes replace one deep full sort: 2.06x measured on v5e, keys
-    bit-identical (same NaN-last total order, exact ties).
-
-    Works on every backend and dtype (pure XLA); on CPU the comparison sorts
-    cost the same O(N log N) either way, so ``fold_impl="auto"`` only routes
-    TPU inputs here.
+    over short axes replace one deep full sort, keys bit-identical (same
+    NaN-last total order, exact ties). ``fold_impl="merge"`` selects it;
+    whether ``"auto"`` does is a measurement (PERF.md "H100 bring-up").
     """
     n, p = keys.shape
     m = -(-n // s)
@@ -167,15 +166,14 @@ def folded_rank_values_sorted(xs, order, med, *, merge: str | None = None):
     medians. Returns ``(zf_sorted, forder)`` — ``zf_sorted[j]`` is the
     rank-normal transform of the j-th smallest ``|x - med|`` and ``forder[j]``
     its original flat row. Same values as ``rank_normalize_folded_sorted``
-    but WITHOUT the inverse sort: callers that only need order-free
+    but WITHOUT routing back to original rows: callers that only need order-free
     reductions of the folded transform (tail R-hat's split-chain moments,
-    ops/seghist.py) skip a full payload sort (~190 ms per 1.28M x 64 block,
-    PERF.md).
+    ops/seghist.py) skip that scatter.
 
     ``merge``: ``None`` uses a plain payload ``lax.sort``; ``"two_sort"``
     sorts the folded valley with the two-axis bitonic-merge decomposition
-    (:func:`valley_sort_2d`, 2.06x on v5e) — bit-identical keys, tie order
-    free (tied ranks are averaged downstream).
+    (:func:`valley_sort_2d`) — bit-identical keys, tie order free (tied
+    ranks are averaged downstream).
     """
     n = xs.shape[0]
     folded = jnp.abs(xs - med[None, :])
@@ -191,11 +189,11 @@ def rank_normalize_from_sort(xs, order, bad):
     """Rank-normalize from a presorted (values, positions) pair.
 
     Returns the flat (N, P) rank-normal sample in original row order — the
-    bulk transform given ``sort_with_positions`` output (one inverse sort).
+    bulk transform given ``sort_with_positions`` output (one scatter).
     """
     n = xs.shape[0]
     zb_sorted = ndtri((_avg_ranks_sorted(xs) - 0.375) / (n + 0.25))
-    _, zb = _sort_pair(order, zb_sorted)
+    zb = _unpermute(order, zb_sorted)
     return jnp.where(bad[None, :], jnp.nan, zb)
 
 
@@ -214,7 +212,7 @@ def rank_normalize_with_median(x3):
 
     The rank/tail kinds need both the rank transform of ``x`` and its median
     (for folding); sharing the sort saves one full O(N log N) pass — sorts are
-    the dominant cost of the rank pipeline on TPU.
+    the dominant cost of the exact rank pipeline.
     """
     d, c, p = x3.shape
     xf = _flatten_sample(x3)
@@ -254,12 +252,10 @@ def rank_bulk_tail_transforms(x3):
     ranks are read off the sorted values, and the fold transform reuses the
     (values, positions) pair.
 
-    Measured on the target chip (PERF.md): one XLA 2-operand sort of the
-    flattened sample costs ~192 ms while the XLA-level 21-stage bitonic
-    valley merge costs ~465 ms (the stages do not fuse — each is a full HBM
-    round trip), so the fastest formulation is FOUR plain sorts and no merge:
-    the key sort, its inverse, the folded-value sort, and its inverse. The
-    median is read off the first sort for free. Numerically identical to
+    Two plain sorts (the key sort and the folded-value sort), each routed
+    back to original rows by one scatter, and no stage-by-stage merge
+    (whose stages do not fuse). The median is read off the first sort for
+    free. Numerically identical to
     transforming independently.
     """
     d, c, p = x3.shape
@@ -269,7 +265,7 @@ def rank_bulk_tail_transforms(x3):
     zb_sorted = ndtri((_avg_ranks_sorted(xs) - 0.375) / (n + 0.25))
     med = jnp.where(bad, jnp.nan, sorted_quantile(xs, 0.5))
     with jax.named_scope("mdt.rank_inverse"):
-        _, zb = _sort_pair(order, zb_sorted)
+        zb = _unpermute(order, zb_sorted)
     with jax.named_scope("mdt.fold_sort"):
         zf = rank_normalize_folded_sorted(xs, order, med)
     z = jnp.where(bad[None, :], jnp.nan, zb)

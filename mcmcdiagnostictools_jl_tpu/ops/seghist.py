@@ -4,11 +4,10 @@ The tail R-hat needs only per-split-chain means/variances of the
 rank-normalized folded sample (reference ``_rhat(Val(:tail), x)``,
 src/ess_rhat.jl:413-415) — order-free sums. Routing the folded rank-normal
 values back to original (draw, chain) positions with a full inverse payload
-sort (~190 ms per 1.28M x 64 block on v5e, PERF.md) only to immediately
-reduce over the draw axis is wasted work: the fold sort already carries each
-element's original flat position, from which its split-chain id is an
-elementwise formula. The per-chain sums then become a weighted one-hot
-contraction over row tiles (~67 ms measured, VPU-bound) — no fourth sort.
+sort only to immediately reduce over the draw axis is wasted work: the fold
+sort already carries each element's original flat position, from which its
+split-chain id is an elementwise formula. The per-chain sums then become a
+weighted one-hot contraction over row tiles — no fourth sort.
 
 Layout contract (utils/split.py, ops/ranknorm.py):
 - flat position ``n = draw * nchains + chain`` (``_flatten_sample`` row order);
@@ -25,6 +24,10 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+
+# these contractions carry data values, not 0/1 products: keep full f32
+# precision (the GPU default may round f32 operands to TF32)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def split_chain_ids_from_flat(order, ndraws: int, nchains: int, split: int):
@@ -57,7 +60,7 @@ def weighted_segment_moments(values, seg, valid, *, nseg: int, tile: int = 4096)
 
     ``values``/``seg``/``valid``: (N, P); segments differ per column. Row
     tiles keep the one-hot block (tile, P, nseg) bounded; XLA fuses the
-    compare into the contraction (measured VPU-bound, PERF.md round 2).
+    compare into the contraction.
     """
     n, p = values.shape
     npad = (-n) % tile
@@ -76,8 +79,8 @@ def weighted_segment_moments(values, seg, valid, *, nseg: int, tile: int = 4096)
         onehot = ((st[:, :, None] == ks[None, None, :]) & okt[:, :, None]).astype(
             vt.dtype
         )
-        a = jnp.einsum("np,nps->sp", vt, onehot)
-        b = jnp.einsum("np,nps->sp", vt * vt, onehot)
+        a = jnp.einsum("np,nps->sp", vt, onehot, precision=_HIGHEST)
+        b = jnp.einsum("np,nps->sp", vt * vt, onehot, precision=_HIGHEST)
         return a, b
 
     a, b = jax.lax.map(one, (v, s, ok))
@@ -87,8 +90,8 @@ def weighted_segment_moments(values, seg, valid, *, nseg: int, tile: int = 4096)
 def split_chain_stats_from_sorted(
     values_sorted, order_sorted, ndraws: int, nchains: int, split: int
 ):
-    """ChainStats of ``values`` routed back to (draws, chains) — without the
-    inverse sort.
+    """ChainStats of ``values`` routed back to (draws, chains) — without
+    moving them back to original rows.
 
     ``values_sorted``: (N, P) transformed values in any order; ``order_sorted``:
     (N, P) the flat original position of each value. Numerically equivalent to

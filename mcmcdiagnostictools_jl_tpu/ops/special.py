@@ -36,8 +36,8 @@ def betaincinv(a, b, y, *, n_bisect: int = 70, n_newton: int = 4):
 
     Bisection to ~2^-70 followed by Newton polish — robust for the moderate
     (a, b) ranges produced by quantile-MCSE (a,b ~ ESS) and F-quantiles
-    (a,b = df/2). Fully batched; NaN inputs propagate. In f32 (TPU fast
-    mode), large-parameter inverses (min(a, b) >= 2e3) use a Cornish-Fisher
+    (a,b = df/2). Fully batched; NaN inputs propagate. In f32,
+    large-parameter inverses (min(a, b) >= 2e3) use a Cornish-Fisher
     normal expansion instead — see ``_F32_ASYM_MIN``. Python scalars follow
     the x64 flag; array inputs keep their own precision.
     """

@@ -2,8 +2,9 @@
 
 The canonical mesh is 2-d: the ``chains`` axis shards the chain dimension
 (chains stay wherever the sampler left them — data-parallel flavour) and the
-``params`` axis shards the parameter dimension (tensor-parallel flavour, used
-for VMEM tiling of the batched kernels). The draw axis is never sharded: FFT
+``params`` axis shards the parameter dimension (tensor-parallel flavour,
+splitting the batched kernels' parameter axis). The draw axis is never
+sharded: FFT
 autocovariance needs each chain's full series locally (SURVEY.md section 5,
 the design invariant).
 """

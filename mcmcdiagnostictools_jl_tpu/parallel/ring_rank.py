@@ -67,7 +67,7 @@ def _count_block(a_sorted, b_sorted):
     every element of ``a_sorted`` (in A-sorted order) the number of B
     elements strictly smaller / exactly equal. One 2-operand value sort of
     the 2N concatenation + run-boundary scans + one compaction sort — no
-    searchsorted (binary-search gathers are the wrong tool on TPU).
+    searchsorted.
     """
     n, p = a_sorted.shape
     c = jnp.concatenate([a_sorted, b_sorted], axis=0)  # (2N, P)

@@ -12,7 +12,7 @@ with explicit collectives (SURVEY.md section 5):
   global per-parameter sample, obtained with one all_gather over the chain
   axis; each device then slices its own chains back out, so FFT work stays
   with the chain owners. (A fully distributed sort is the planned
-  optimization; the all_gather rides ICI and is exact.)
+  optimization; the all_gather is exact.)
 
 The single-device path is the K=1 special case of the same code — no forked
 logic; parity with ``diagnostics.ess_rhat`` is asserted in tests on a virtual
@@ -39,6 +39,7 @@ from ..ops.fastrank import (
 )
 from ..ops.geyer import geyer_ess_from_rho
 from ..ops.ranknorm import (
+    _unpermute,
     folded_rank_values_sorted,
     rank_normalize,
     rank_normalize_from_sort,
@@ -306,7 +307,7 @@ def _ring_kernel(
         )
         return ess, rhat
     # bulk / rank: rank-normalize back to local (draw, chain) order
-    _, z = _sort_pair(order, z_sorted)
+    z = _unpermute(order, z_sorted)
     z = jnp.where(bad[None, :], jnp.nan, z).reshape(d, c_loc, p)
     ess_bulk, rhat_bulk = _sharded_basic(
         z, split_chains=split_chains, maxlag=maxlag, method=method,
@@ -346,7 +347,7 @@ def _sharded_minmax(xf, chain_axis: str):
 
 
 def _sharded_fast_rank(xf, chain_axis: str, kshards: int, nbins: int,
-                       fast_impl: str, minmax=None):
+                       minmax=None):
     """Global histogram CDF + local in-place rank transform.
 
     Each shard histograms its local elements, ONE psum merges the bin
@@ -362,11 +363,8 @@ def _sharded_fast_rank(xf, chain_axis: str, kshards: int, nbins: int,
     n_global = xf.shape[0] * kshards
     cdf = build_hist_cdf(
         xf, nbins, minmax=minmax, psum_axis=chain_axis, n_global=n_global,
-        impl=fast_impl,
     )
-    # same helper as the single-device path: on Pallas the Blom+ndtri fuse
-    # into the lookup kernel (ops/fastrank.fast_rank_normalize_flat)
-    return fast_rank_normalize_flat(xf, nbins, cdf=cdf, impl=fast_impl)
+    return fast_rank_normalize_flat(xf, nbins, cdf=cdf)
 
 
 def _fold_minmax_from(cdf, med):
@@ -397,7 +395,7 @@ def _local_rhat_psum(z3, split_chains: int, chain_axis: str, bad):
 
 def _hist_kernel(
     xb, *, kind, split_chains, maxlag, method, relative, q, chain_axis,
-    kshards, nbins, fast_impl,
+    kshards, nbins,
 ):
     """Rank-kind ESS/R-hat with the histogram rank transform.
 
@@ -408,7 +406,7 @@ def _hist_kernel(
     """
     d, c_loc, p = xb.shape
     xf = xb.reshape(d * c_loc, p)
-    z, cdf = _sharded_fast_rank(xf, chain_axis, kshards, nbins, fast_impl)
+    z, cdf = _sharded_fast_rank(xf, chain_axis, kshards, nbins)
     tail_prob = 0.1 if q is None else q
     if kind == "tail":
         t_lo, t_hi, med = hist_quantile(
@@ -437,7 +435,7 @@ def _hist_kernel(
             return ess, rhat_bulk
     folded = jnp.abs(xf - jnp.nan_to_num(med)[None, :])
     z_tail, _ = _sharded_fast_rank(
-        folded, chain_axis, kshards, nbins, fast_impl,
+        folded, chain_axis, kshards, nbins,
         minmax=_fold_minmax_from(cdf, med),
     )
     rhat_tail = _local_rhat_psum(
@@ -516,7 +514,7 @@ def _resolve_rank_impl(rank_impl: str, x3, kind: str) -> str:
 
     ``auto`` switches to the ring merge-count when the gathered full sample
     would exceed ~128 MB per device — the regime where the all_gather's
-    O(chains_total) HBM footprint dominates (VERDICT round 2, item 3).
+    O(chains_total) device-memory footprint dominates.
     ``hist`` (opt-in, never auto-selected: it is approximate) replaces the
     rank transform with the one-psum histogram CDF (ops/fastrank.py).
     """
@@ -564,21 +562,14 @@ def ess_rhat_sharded(
     eff_maxlag = min(maxlag, niter - 4)
     impl = _resolve_rank_impl(rank_impl, x3, kind)
     x3 = shard_canonical(x3, cfg)
-
-    # Resolve "auto" against the mesh's devices; the fused kernel computes
-    # moments the sharded path derives with collectives, so map it to the
-    # plain Pallas direct-autocov kernel (TPU) / FFT (interpret) here.
-    method = _method_name(autocov_method, x3, niter, eff_maxlag)
-
     fn = build_sharded_ess_rhat_fn(
         cfg, kind=kind, split_chains=split_chains, eff_maxlag=eff_maxlag,
-        method=method, relative=relative,
+        method=_method_name(autocov_method), relative=relative,
         # only the tail kind consumes the probability — normalizing to None
         # otherwise keeps the cache from re-tracing identical pipelines for
         # every distinct (ignored) tail_prob
         q=(tail_prob if kind == "tail" else None),
         rank_impl=impl, rank_nbins=rank_nbins,
-        dtype=jnp.dtype(x3.dtype),
     )
     ess, rhat = fn(x3)
     return ESSRhat(maybe_scalar(ess, pshape), maybe_scalar(rhat, pshape))
@@ -588,7 +579,7 @@ def ess_rhat_sharded(
 def build_sharded_ess_rhat_fn(
     cfg: MeshConfig, *, kind: str, split_chains: int, eff_maxlag: int,
     method, relative: bool, q: float | None, rank_impl: str,
-    rank_nbins: int, dtype,
+    rank_nbins: int,
 ):
     """Construct the jitted shard_map'ed ESS/R-hat pipeline for one option
     signature — cached so repeat calls (and the streaming executor's chunk
@@ -596,20 +587,9 @@ def build_sharded_ess_rhat_fn(
     ``rank_impl`` must already be resolved (no "auto"); ``method`` likewise;
     ``q`` is the tail probability (None for non-tail kinds).
     """
-    if method in ("fused", "fused_interpret"):
-        method = "pallas" if method == "fused" else "fft"
     impl = rank_impl
 
     if impl == "hist" and kind in ("bulk", "tail", "rank"):
-        # XLA radix matmuls inside shard_map on CPU meshes; the fused Pallas
-        # kernels on a real TPU mesh (f32 only — the kernels' VMEM scratch
-        # is f32; sub-f32 dtypes take the upcasting XLA path)
-        fast_impl = (
-            "pallas"
-            if all(d.platform == "tpu" for d in cfg.mesh.devices.flat)
-            and jnp.dtype(dtype) == jnp.float32
-            else "xla"
-        )
         kernel = partial(
             _hist_kernel,
             kind=kind,
@@ -621,7 +601,6 @@ def build_sharded_ess_rhat_fn(
             chain_axis=cfg.chain_axis,
             kshards=cfg.mesh.shape[cfg.chain_axis],
             nbins=rank_nbins,
-            fast_impl=fast_impl,
         )
     elif impl == "ring" and kind in ("bulk", "tail", "rank"):
         kernel = partial(
@@ -724,7 +703,6 @@ def rhat_nested_sharded(
     fn = build_sharded_rhat_nested_fn(
         cfg, kind=kind, split_chains=split_chains,
         nsuper_local=nsuper_local, rank_impl=impl, rank_nbins=rank_nbins,
-        dtype=jnp.dtype(x3.dtype),
     )
     vals = fn(x3)
     from ..utils.layout import maybe_scalar as _ms
@@ -735,7 +713,7 @@ def rhat_nested_sharded(
 @functools.lru_cache(maxsize=128)
 def build_sharded_rhat_nested_fn(
     cfg: MeshConfig, *, kind: str, split_chains: int, nsuper_local: int,
-    rank_impl: str, rank_nbins: int, dtype,
+    rank_impl: str, rank_nbins: int,
 ):
     """Construct the jitted shard_map'ed nested-R-hat pipeline for one
     option signature — cached like :func:`build_sharded_ess_rhat_fn` so
@@ -780,12 +758,6 @@ def build_sharded_rhat_nested_fn(
         # sort-free AND gather-free: one histogram psum per transform
         # (ops/fastrank.py bound applies; opt-in via rank_impl="hist")
         d, c_loc, p = xb.shape
-        fast_impl = (
-            "pallas"
-            if all(dv.platform == "tpu" for dv in cfg.mesh.devices.flat)
-            and jnp.dtype(dtype) == jnp.float32
-            else "xla"
-        )
         xf = xb.reshape(d * c_loc, p)
 
         def nested_local(z3, bad):
@@ -800,9 +772,7 @@ def build_sharded_rhat_nested_fn(
             )
             return jnp.where(bad, jnp.nan, r)
 
-        z, cdf = _sharded_fast_rank(
-            xf, cfg.chain_axis, kshards, rank_nbins, fast_impl
-        )
+        z, cdf = _sharded_fast_rank(xf, cfg.chain_axis, kshards, rank_nbins)
         if kind in ("bulk", "rank"):
             bulk = nested_local(z.reshape(d, c_loc, p), cdf.bad)
             if kind == "bulk":
@@ -810,7 +780,7 @@ def build_sharded_rhat_nested_fn(
         med = hist_quantile(cdf, (0.5,), rank_nbins)[0]
         folded = jnp.abs(xf - jnp.nan_to_num(med)[None, :])
         z_tail, _ = _sharded_fast_rank(
-            folded, cfg.chain_axis, kshards, rank_nbins, fast_impl,
+            folded, cfg.chain_axis, kshards, rank_nbins,
             minmax=_fold_minmax_from(cdf, med),
         )
         tail = nested_local(z_tail.reshape(d, c_loc, p), cdf.bad)

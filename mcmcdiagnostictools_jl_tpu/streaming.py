@@ -1,16 +1,14 @@
 """Out-of-core / streaming execution over the parameter axis.
 
 The BASELINE north-star workload (1e4 chains x 1e4 draws x 1e3 params, f32)
-is a 400 GB array — larger than a v5e-16 pod's 256 GB of HBM (25 GB/chip vs
-16 GB), so the "whole array device-resident" execution model (SURVEY.md
-section 5 invariant: draws never shard) cannot even hold it. Every kernel in
-this library is per-parameter independent, which makes the parameter axis
-the natural streaming axis: process P in chunks, with the host->device
-transfer of chunk k+1 overlapping the compute of chunk k (double
-buffering). Peak device memory is two chunks regardless of P, and the wall
-approaches ``max(total_transfer, total_compute)`` instead of their sum —
-round 4 measured a SERIAL 102.8 s ``device_put`` for a 5 GB config-4 input
-with zero overlap (report_r4), which this module exists to fix.
+is a 400 GB array — more than four 80 GB cards hold, so the "whole array
+device-resident" execution model (SURVEY.md section 5 invariant: draws never
+shard) cannot hold it. Every kernel in this library is per-parameter
+independent, which makes the parameter axis the natural streaming axis:
+process P in chunks, with the host->device transfer of chunk k+1 overlapping
+the compute of chunk k (double buffering). Peak device memory is two chunks
+regardless of P, and the wall approaches ``max(total_transfer,
+total_compute)`` instead of their sum.
 
 Two entry points:
 
@@ -24,7 +22,7 @@ Two entry points:
   sample.
 
 The reference has no counterpart (it is a single-host in-memory library);
-this is a pure TPU-native obligation (BASELINE.json north_star).
+it serves the BASELINE.json north-star workload.
 """
 
 from __future__ import annotations
@@ -42,7 +40,6 @@ from .diagnostics.ess_rhat import (
     _ess_rhat_pipeline,
     _method_name,
 )
-from .ops.fastrank import resolve_fast_impl
 
 
 @dataclass
@@ -225,6 +222,7 @@ def ess_rhat_streaming(
         raise ValueError("streaming ess_rhat requires >4 draws per split "
                          "chain")
     eff_maxlag = min(maxlag, niter - 4)
+    method = _method_name(autocov_method)
 
     def cast_source(start, size):
         return np.asarray(src(start, size), dtype=dtype)
@@ -248,26 +246,13 @@ def ess_rhat_streaming(
                 "mesh; 'gather'/'ring' are the exact transforms"
             )
         sharding = NamedSharding(mesh_cfg.mesh, mesh_cfg.data_spec)
-        # resolve "auto" against the MESH's platform, not the default
-        # device's (they can differ, e.g. a CPU test mesh on a TPU host);
-        # a 1-element placement probe carries the platform + dtype — no
-        # source data needed
-        dev_probe = jax.device_put(
-            np.zeros((1, 1, 1), dtype),
-            next(iter(mesh_cfg.mesh.devices.flat)),
-        )
-        method = _method_name(autocov_method, dev_probe, niter, eff_maxlag)
         fn = build_sharded_ess_rhat_fn(
             mesh_cfg, kind=kind, split_chains=split_chains,
             eff_maxlag=eff_maxlag, method=method, relative=relative,
             q=(tail_prob if kind == "tail" else None),
             rank_impl=rank_impl, rank_nbins=rank_nbins,
-            dtype=np.dtype(dtype),
         )
     else:
-        dev_probe = jax.device_put(np.zeros((1, 1, 1), dtype))
-        method = _method_name(autocov_method, dev_probe, niter, eff_maxlag)
-        fast_impl = resolve_fast_impl(dev_probe)
         q = tail_prob if kind == "tail" else None
 
         def fn(chunk):
@@ -275,7 +260,6 @@ def ess_rhat_streaming(
                 chunk, kind=kind, split_chains=split_chains,
                 maxlag=eff_maxlag, method=method, relative=relative, q=q,
                 rank_mode=rank_mode, rank_nbins=rank_nbins,
-                fast_impl=fast_impl,
             )
 
     out = stream_param_chunks(

@@ -7,7 +7,7 @@ discarded after each of the first d splits** within each chain — reference
 src/ess_rhat.jl:4-7. Getting this rule exactly right matters: it changes every
 downstream ESS/R-hat number for odd draw counts.
 
-TPU-first formulation: instead of a per-column copy loop, the split is a single
+Batched formulation: instead of a per-column copy loop, the split is a single
 static gather along the draw axis — split ``k`` (0-indexed) reads draws
 ``[k*niter + min(k, d), k*niter + min(k, d) + niter)``.
 """

@@ -277,25 +277,3 @@ class TestJitEagerParity:
                                    np.asarray(without.ess), rtol=1e-10)
         np.testing.assert_allclose(np.asarray(with_jit.rhat),
                                    np.asarray(without.rhat), rtol=1e-10)
-
-
-class TestPallasAutocov:
-    def test_interpret_matches_direct(self, rng):
-        from mcmcdiagnostictools_jl_tpu import PallasAutocovMethod
-
-        x = ref_impl.ar1_matrix(rng, 0.6, 1.0, (500, 4, 3)).astype(np.float32)
-        a = np.asarray(mdt.ess(x, kind="basic",
-                               autocov_method=PallasAutocovMethod(interpret=True)))
-        b = np.asarray(mdt.ess(x, kind="basic", autocov_method=AutocovMethod()))
-        np.testing.assert_allclose(a, b, rtol=1e-4)
-
-    def test_interpret_rank_pipeline(self, rng):
-        from mcmcdiagnostictools_jl_tpu import PallasAutocovMethod
-
-        x = rng.standard_normal((300, 4, 2))
-        a = mdt.ess_rhat(x, kind="rank",
-                         autocov_method=PallasAutocovMethod(interpret=True))
-        b = mdt.ess_rhat(x, kind="rank")
-        np.testing.assert_allclose(np.asarray(a.ess), np.asarray(b.ess), rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(a.rhat), np.asarray(b.rhat),
-                                   rtol=1e-10)

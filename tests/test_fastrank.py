@@ -189,7 +189,7 @@ class TestDiagnosticsParity:
 
     def test_fast_mode_pipeline_has_zero_sorts(self):
         """The north-star contract: a rank_mode='fast' pass compiles to a
-        graph with NO sort primitive for ANY kind (VERDICT r4 ask 2)."""
+        graph with NO sort primitive for ANY kind."""
         import jax
         import jax.numpy as jnp
 
@@ -223,7 +223,7 @@ class TestDiagnosticsParity:
         s = jnp.full((3,), 100.0)
         jaxpr = jax.make_jaxpr(
             lambda y, se: _mcse_quantile_from_ess_fast(
-                y, 0.25, se, nbins=1024, impl="xla"
+                y, 0.25, se, nbins=1024
             )
         )(x, s)
         assert "= sort[" not in str(jaxpr)
@@ -237,87 +237,6 @@ class TestDiagnosticsParity:
         e = np.asarray(mdt.ess(x, kind="bulk"))
         f = np.asarray(mdt.ess(x, kind="bulk", rank_mode="fast"))
         np.testing.assert_allclose(f, e, rtol=1e-2)
-
-
-class TestPallasKernels:
-    """The fused Pallas kernels (interpret mode) vs the XLA radix path.
-
-    On-device the two paths are bit-identical (verified on v5e); interpret
-    mode keeps that contract testable on CPU.
-    """
-
-    def test_hist_moments_match(self, rng):
-        x = rng.standard_normal((5000, 5)).astype(np.float32)
-        x[:, 2] = np.round(x[:, 2] * 2) / 2  # heavy ties
-        a = build_hist_cdf(x, DEFAULT_NBINS, impl="xla")
-        b = build_hist_cdf(x, DEFAULT_NBINS, impl="pallas_interpret")
-        np.testing.assert_array_equal(np.asarray(a.cum), np.asarray(b.cum))
-        np.testing.assert_allclose(np.asarray(a.fm), np.asarray(b.fm),
-                                   atol=1e-5)
-
-    def test_rank_lookup_matches(self, rng):
-        x = rng.standard_normal((5000, 5)).astype(np.float32)
-        cdf = build_hist_cdf(x, 1024, impl="xla")
-        a = np.asarray(interpolated_ranks(x, cdf, 1024, impl="xla"))
-        b = np.asarray(
-            interpolated_ranks(x, cdf, 1024, impl="pallas_interpret")
-        )
-        np.testing.assert_allclose(a, b, atol=1e-3)
-
-    def test_ppnd7_matches_ndtri(self):
-        """Inline AS241 ndtri (the Pallas-fusable inverse normal CDF) vs
-        jax.scipy's, across the central and both tail branches."""
-        import jax.numpy as jnp
-        from jax.scipy.special import ndtri
-
-        from mcmcdiagnostictools_jl_tpu.ops.pallas.fastrank_kernel import (
-            ppnd7,
-        )
-
-        p = np.concatenate([
-            np.linspace(1e-7, 1 - 1e-7, 2001),      # central
-            np.geomspace(1e-30, 1e-2, 200),          # far lower tail
-            1 - np.geomspace(1e-7, 1e-2, 200),       # upper tail
-        ])
-        got = np.asarray(ppnd7(jnp.asarray(p)))
-        want = np.asarray(ndtri(jnp.asarray(p)))
-        np.testing.assert_allclose(got, want, rtol=2e-7, atol=2e-7)
-
-    def test_fused_z_lookup_matches_xla(self, rng, monkeypatch):
-        """blom_n fuses Blom+ndtri into the lookup kernel: output must match
-        the XLA rank -> z_from_ranks path. (The fusion is off by default —
-        measured slower on the VPU-bound kernel — but stays correct.)"""
-        from mcmcdiagnostictools_jl_tpu.ops import fastrank
-        from mcmcdiagnostictools_jl_tpu.ops.fastrank import (
-            fast_rank_normalize_flat,
-        )
-
-        x = rng.standard_normal((5000, 5)).astype(np.float32)
-        x[:, 2] = np.round(x[:, 2] * 2) / 2  # ties
-        x[:, 3] = 1.25  # degenerate column
-        za, _ = fast_rank_normalize_flat(x, 1024, impl="xla")
-        monkeypatch.setattr(fastrank, "FUSE_BLOM_Z", True)
-        zb, _ = fast_rank_normalize_flat(x, 1024, impl="pallas_interpret")
-        # extreme-rank elements amplify f32 ndtri differences by 1/phi(z);
-        # 1e-4 in z is far below the fast mode's own approximation bound
-        np.testing.assert_allclose(np.asarray(zb), np.asarray(za),
-                                   rtol=1e-5, atol=1e-4)
-
-    def test_row_padding(self, rng):
-        # N not a multiple of the kernel row block: pad lanes must not
-        # contaminate any bin
-        x = rng.standard_normal((333, 3)).astype(np.float32)
-        a = build_hist_cdf(x, 1024, impl="xla")
-        b = build_hist_cdf(x, 1024, impl="pallas_interpret")
-        np.testing.assert_array_equal(np.asarray(a.cum), np.asarray(b.cum))
-        assert float(np.asarray(b.cum)[-1, 0]) == 333.0
-
-    def test_param_padding(self, rng):
-        # P not a multiple of the kernel sublane block
-        x = rng.standard_normal((2000, 7)).astype(np.float32)
-        a = build_hist_cdf(x, 1024, impl="xla")
-        b = build_hist_cdf(x, 1024, impl="pallas_interpret")
-        np.testing.assert_array_equal(np.asarray(a.cum), np.asarray(b.cum))
 
 
 class TestFoldedCDF:
@@ -352,28 +271,8 @@ class TestFoldedCDF:
 
 
 class TestDtypeGating:
-    """ADVICE r4 (medium): the Pallas kernels hard-require f32 — any other
-    dtype must take the XLA path, and sub-f32 inputs must keep full bin
-    resolution through the upcasting ``_bin_coords``."""
-
-    def test_resolve_fast_impl_requires_f32(self):
-        from types import SimpleNamespace
-
-        import jax.numpy as jnp
-
-        from mcmcdiagnostictools_jl_tpu.ops.fastrank import resolve_fast_impl
-
-        class FakeTPUArray:
-            def __init__(self, dtype):
-                self.dtype = jnp.dtype(dtype)
-
-            def devices(self):
-                return {SimpleNamespace(platform="tpu")}
-
-        assert resolve_fast_impl(FakeTPUArray(jnp.float32)) == "pallas"
-        assert resolve_fast_impl(FakeTPUArray(jnp.bfloat16)) == "xla"
-        assert resolve_fast_impl(FakeTPUArray(jnp.float16)) == "xla"
-        assert resolve_fast_impl(FakeTPUArray(jnp.float64)) == "xla"
+    """Sub-f32 inputs must keep full bin resolution through the upcasting
+    ``_bin_coords``."""
 
     def test_bf16_bin_coords_full_resolution(self, rng):
         """bf16 inputs upcast before the bin arithmetic: the bin index must
@@ -396,8 +295,8 @@ class TestDtypeGating:
         np.testing.assert_array_equal(np.asarray(b_ref), np.asarray(b_bf))
 
     def test_bf16_end_to_end(self, rng):
-        """ess_rhat(..., rank_mode='fast') on bf16 input runs (XLA path) and
-        tracks the f32 fast result."""
+        """ess_rhat(..., rank_mode='fast') on bf16 input runs and tracks the
+        f32 fast result."""
         import jax.numpy as jnp
 
         x = rng.standard_normal((2000, 4, 3)).astype(np.float32)
@@ -408,17 +307,111 @@ class TestDtypeGating:
                                    np.asarray(a.ess), rtol=0.05)
 
 
-class TestPallasMinmax:
-    def test_matches_xla(self, rng):
-        from mcmcdiagnostictools_jl_tpu.ops.fastrank import column_minmax
-        from mcmcdiagnostictools_jl_tpu.ops.pallas.fastrank_kernel import (
-            pallas_column_minmax,
-        )
+class TestHistogramOracle:
+    """The scatter histogram and the gather lookup against NumPy."""
 
-        x = rng.standard_normal((3333, 7)).astype(np.float32)
-        x[5, 2] = np.nan
-        x[:, 4] = np.nan  # all-NaN column -> [0, 1] fallback
-        a = column_minmax(x)
-        b = pallas_column_minmax(x, interpret=True)
-        for u, v in zip(a, b):
-            np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
+    @staticmethod
+    def _grid_sample(rng, n, p, dtype):
+        # values on a 1/1024 grid inside [0, 1] with both ends present, so
+        # lo = 0, hi = 1 and every bin edge is exact in binary: the library's
+        # bins and np.histogram's must agree element for element
+        x = rng.integers(0, 1024 * 8, size=(n, p)) / (1024.0 * 8)
+        x[0], x[1] = 0.0, 1.0
+        return x.astype(dtype)
+
+    @pytest.mark.parametrize("n,p", [(333, 3), (5000, 7), (70_000, 2)])
+    def test_counts_match_np_histogram(self, rng, n, p):
+        x = self._grid_sample(rng, n, p, np.float32)
+        cdf = build_hist_cdf(x, 1024)
+        counts = np.asarray(cdf.counts)
+        for j in range(p):
+            want, _ = np.histogram(x[:, j], bins=1024, range=(0.0, 1.0))
+            np.testing.assert_array_equal(counts[:, j], want)
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    def test_prefix_counts_exact_beyond_2_11(self, rng, dtype):
+        """cum is an exact integer prefix for n well above 2^11 (an f32
+        lookup through a TF32 matmul would round these)."""
+        n = 3 * 2**15 + 17
+        x = self._grid_sample(rng, n, 2, dtype)
+        cdf = build_hist_cdf(x, 1024)
+        cum = np.asarray(cdf.cum)
+        for j in range(2):
+            want, _ = np.histogram(x[:, j], bins=1024, range=(0.0, 1.0))
+            np.testing.assert_array_equal(
+                cum[:, j], np.concatenate([[0], np.cumsum(want)]))
+        assert cum.dtype == np.dtype(dtype)
+
+    def test_anchor_is_clamped_bin_mean(self, rng):
+        from mcmcdiagnostictools_jl_tpu.ops.fastrank import _bin_coords
+
+        x = rng.standard_normal((4000, 3))
+        cdf = build_hist_cdf(x, 256)
+        b, frac = (np.asarray(v) for v in
+                   _bin_coords(x, cdf.lo, cdf.hi, 256))
+        fm = np.asarray(cdf.fm)
+        for j in range(3):
+            cnt = np.bincount(b[:, j], minlength=256)
+            s1 = np.bincount(b[:, j], weights=frac[:, j], minlength=256)
+            want = np.where(cnt > 0, s1 / np.maximum(cnt, 1), 0.5)
+            np.testing.assert_allclose(fm[:, j], want, rtol=1e-12, atol=1e-15)
+
+    def test_point_values(self, rng):
+        """``point`` holds the common value of all-equal bins, NaN in
+        mixed and empty bins."""
+        x = np.concatenate([np.full(500, 0.25), rng.uniform(0.5, 1.0, 4500),
+                            [0.0]])[:, None]
+        cdf = build_hist_cdf(x, 64)
+        point = np.asarray(cdf.point)[:, 0]
+        assert point[16] == 0.25  # 0.25 * 64 = bin 16, pure
+        assert point[0] == 0.0  # singleton
+        assert np.isnan(point[40])  # mixed continuous bin
+        assert np.isnan(point[8])  # empty bin
+
+    def test_quantile_of_point_mass_is_exact(self, rng):
+        x = rng.poisson(3.0, size=(20_001, 2)).astype(np.float32)
+        cdf = build_hist_cdf(x, DEFAULT_NBINS)
+        for q in (0.05, 0.5, 0.95):
+            got = np.asarray(hist_quantile(cdf, (q,), DEFAULT_NBINS))[0]
+            want = np.quantile(x, q, axis=0)
+            np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    def test_tied_ranks_exact_any_order(self, rng, dtype):
+        """Integer-valued draws: every bin is a point mass and the ranks
+        equal the tied-average ranks, whatever order the frac sums were
+        accumulated in (the anchor clamp makes this order-free)."""
+        x = rng.poisson(3.0, size=(60_000, 3)).astype(dtype)
+        x[:, 1] = x[:, 1] * 0.1 + 1e3  # non-integer frac inside each bin
+        cdf = build_hist_cdf(x, DEFAULT_NBINS)
+        rfast = np.asarray(interpolated_ranks(x, cdf, DEFAULT_NBINS))
+        rexact = np.asarray(tiedrank(x.astype(np.float64)))
+        np.testing.assert_allclose(rfast, rexact, rtol=0, atol=0.05)
+
+    @pytest.mark.parametrize("n,p", [(1000, 3), (777, 5)])
+    def test_lookup_matches_take_along_axis(self, rng, n, p):
+        from mcmcdiagnostictools_jl_tpu.ops.fastrank import lookup_bins
+
+        b = rng.integers(0, 64, size=(n, p)).astype(np.int32)
+        tables = rng.standard_normal((64, p, 3))
+        got = np.asarray(lookup_bins(b, tables))
+        for w in range(3):
+            np.testing.assert_array_equal(
+                got[w], np.take_along_axis(tables[:, :, w], b, axis=0))
+
+    def test_nan_column_flagged_and_others_intact(self, rng):
+        x = rng.standard_normal((3000, 3))
+        x[17, 1] = np.nan
+        cdf = build_hist_cdf(x, 512)
+        np.testing.assert_array_equal(np.asarray(cdf.bad), [False, True, False])
+        clean = build_hist_cdf(x[:, [0, 2]], 512)
+        np.testing.assert_array_equal(np.asarray(cdf.cum)[:, [0, 2]],
+                                      np.asarray(clean.cum))
+
+    def test_constant_column_exact_tied_rank(self, rng):
+        x = rng.standard_normal((2001, 2))
+        x[:, 0] = -4.5
+        cdf = build_hist_cdf(x, 512)
+        r = np.asarray(interpolated_ranks(x, cdf, 512))
+        np.testing.assert_array_equal(r[:, 0], np.full(2001, 1001.0))
+        assert float(np.asarray(cdf.cum)[-1, 0]) == 2001.0

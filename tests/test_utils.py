@@ -116,6 +116,21 @@ class TestTiedrank:
         np.testing.assert_allclose(ours, ref)
 
 
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32])
+    def test_unpermute_inverts_the_payload_sort(self, rng, dtype):
+        """The scatter that routes sorted values back equals NumPy's
+        inverse permutation, for float and integer payloads."""
+        from mcmcdiagnostictools_jl_tpu.ops.ranknorm import _unpermute
+
+        order = np.stack([rng.permutation(333) for _ in range(4)], axis=1)
+        values = rng.integers(-50, 50, size=(333, 4)).astype(dtype)
+        want = np.empty_like(values)
+        np.put_along_axis(want, order, values, axis=0)
+        got = np.asarray(_unpermute(order.astype(np.int32), values))
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == values.dtype
+
+
 class TestRankNormalize:
     @pytest.mark.parametrize("shape", [(1000, 1, 1), (1000, 4, 1), (1000, 4, 8)])
     def test_matches_oracle(self, rng, shape):
